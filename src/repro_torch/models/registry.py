@@ -1,0 +1,80 @@
+"""Family registry: one API over the architecture families (port of the JAX
+package's ``models/registry.py``; the dense family only so far).
+
+    init(seed, cfg, device)        -> params
+    loss_fn(params, cfg, batch)    -> scalar loss
+    prefill(params, cfg, batch)    -> (logits, cache)
+    decode_step(params, cfg, cache, pos, tokens) -> (logits, cache)
+
+plus ``param_count`` (on the meta device: nothing is allocated) and the
+weight bridge to the reference, ``params_from_numpy``/``params_to_numpy``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import tree as T
+from repro_torch.models import transformer
+from repro_torch.models.base import ModelConfig
+
+_FAMILIES = {"dense": transformer}
+
+# the ROADMAP item that ports each family not yet in the port
+_PENDING = {"moe": "A13", "ssm": "A12", "hybrid": "A12", "vlm": "A14",
+            "audio": "A14"}
+
+
+def family_module(cfg: ModelConfig):
+    if cfg.family in _FAMILIES:
+        return _FAMILIES[cfg.family]
+    raise NotImplementedError(
+        f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet "
+        f"(ROADMAP {_PENDING.get(cfg.family, '?')})")
+
+
+def init(seed: int, cfg: ModelConfig, device="cuda"):
+    """Random weights drawn from a ``torch.Generator`` seeded with ``seed``
+    on ``device``. They differ from the reference's ``jax.random`` draws;
+    to hold the two packages against each other, carry the reference's
+    weights across with ``params_from_numpy``."""
+    dev = T.resolve_device(device)
+    if dev.type == "meta":
+        normal = lambda shape: torch.empty(shape, device=dev)  # noqa: E731
+    else:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        normal = lambda shape: torch.randn(  # noqa: E731
+            shape, generator=gen, device=dev)
+    return family_module(cfg).init(normal, cfg, dev)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    return family_module(cfg).loss_fn(params, cfg, batch)
+
+
+def prefill(params, cfg: ModelConfig, batch, max_seq=None):
+    return family_module(cfg).prefill(params, cfg, batch["tokens"],
+                                      max_seq=max_seq)
+
+
+def decode_step(params, cfg: ModelConfig, cache, pos, tokens):
+    return family_module(cfg).decode_step(params, cfg, cache, pos, tokens)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    return sum(x.numel() for x in T.leaves(init(0, cfg, device="meta")))
+
+
+def param_bytes(cfg: ModelConfig) -> int:
+    return sum(x.numel() * x.element_size()
+               for x in T.leaves(init(0, cfg, device="meta")))
+
+
+def params_from_numpy(tree, device="cuda"):
+    """The reference's params (a tree of numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) -> the port's, key for key."""
+    return T.from_numpy(tree, device)
+
+
+def params_to_numpy(params):
+    """The port's params -> numpy arrays (bf16 leaves as float32)."""
+    return T.to_numpy(params)

@@ -1,0 +1,113 @@
+"""Dense decoder-only transformer (olmo-1b, qwen2.5-3b, phi4-mini,
+mistral-large); port of the JAX package's ``models/transformer.py``.
+
+Layers are stacked on a leading layer axis, as in the reference, so weights
+carry across key for key. A Python loop over the layers replaces
+``lax.scan``; each stacked leaf is unbound once per forward (indexing it
+per layer would make autograd allocate a zero tensor the size of the whole
+stack for every layer's backward).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import tree as T
+from repro_torch.models import layers as L
+from repro_torch.models.base import ModelConfig
+
+
+def init_block(normal, cfg: ModelConfig, device):
+    return {
+        "ln1": L.init_norm(cfg, device),
+        "attn": L.init_attention(normal, cfg, device),
+        "ln2": L.init_norm(cfg, device),
+        "mlp": L.init_mlp(normal, cfg),
+    }
+
+
+def stack_init(fn, n: int):
+    """Call a per-layer init n times and stack every leaf on a new axis 0."""
+    per_layer = [fn() for _ in range(n)]
+    return T.unflatten(per_layer[0], [torch.stack(xs) for xs in zip(
+        *(T.leaves(p) for p in per_layer))])
+
+
+def apply_block(bp, cfg: ModelConfig, h, *, positions=None, cache=None,
+                cache_index=None):
+    a, new_cache = L.apply_attention(
+        bp["attn"], cfg, L.apply_norm(bp["ln1"], cfg, h),
+        positions=positions, cache=cache, cache_index=cache_index)
+    h = h + a
+    h = h + L.apply_mlp(bp["mlp"], cfg, L.apply_norm(bp["ln2"], cfg, h))
+    return h, new_cache
+
+
+def init(normal, cfg: ModelConfig, device):
+    return {
+        "embed": L.init_embed(normal, cfg),
+        "blocks": stack_init(lambda: init_block(normal, cfg, device),
+                             cfg.n_layers),
+        "final_norm": L.init_norm(cfg, device),
+    }
+
+
+def _unbind_layers(tree, n: int):
+    """A stacked tree -> n per-layer trees (views, one unbind per leaf)."""
+    ls = T.leaves(tree)
+    per_leaf = [torch.unbind(x, 0) for x in ls]
+    return [T.unflatten(tree, [u[i] for u in per_leaf]) for i in range(n)]
+
+
+def _run_blocks(params, cfg: ModelConfig, h, *, positions=None, cache=None,
+                cache_index=None):
+    """Run all blocks in order. ``cache`` (if given) is stacked on the layer
+    axis, and so is the returned cache."""
+    if cfg.remat:
+        raise NotImplementedError("remat is not ported yet")
+    n = cfg.n_layers
+    blocks = _unbind_layers(params["blocks"], n)
+    caches = _unbind_layers(cache, n) if cache is not None else [None] * n
+    new_caches = []
+    for bp, c in zip(blocks, caches):
+        h, nc = apply_block(bp, cfg, h, positions=positions, cache=c,
+                            cache_index=cache_index)
+        new_caches.append(nc)
+    if cache is None:
+        return h, None
+    return h, {k: torch.stack([c[k] for c in new_caches]) for k in cache}
+
+
+def forward(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,
+            cache_index=None):
+    h = L.embed_tokens(params["embed"], tokens)
+    h, new_cache = _run_blocks(params, cfg, h, positions=positions,
+                               cache=cache, cache_index=cache_index)
+    h = L.apply_norm(params["final_norm"], cfg, h)
+    return L.unembed(params["embed"], cfg, h), new_cache
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    logits, _ = forward(params, cfg, batch["tokens"])
+    return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:], cfg)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
+    c = L.init_kv_cache(cfg, batch, max_seq, device)
+    return {k: torch.zeros((cfg.n_layers,) + x.shape, dtype=x.dtype,
+                           device=x.device) for k, x in c.items()}
+
+
+def prefill(params, cfg: ModelConfig, tokens, max_seq: Optional[int] = None):
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max_seq or s, tokens.device)
+    return forward(params, cfg, tokens, cache=cache, cache_index=0)
+
+
+def decode_step(params, cfg: ModelConfig, cache, pos: int, tokens):
+    """tokens: (b, 1); pos: int index into the cache."""
+    positions = torch.full((1,), int(pos), dtype=torch.int64,
+                           device=tokens.device)
+    return forward(params, cfg, tokens, positions=positions, cache=cache,
+                   cache_index=int(pos))

@@ -1,0 +1,209 @@
+"""The port's kernel entry points (``repro_torch.kernels``) against the
+reference's (``repro.kernels.ops`` in Pallas interpret mode, and
+``repro.kernels.ref``) over the sweeps of ``tests/test_kernels.py``, at its
+tolerances. On the CPU each wrapper runs its plain version; a tensor on any
+other device must reach the kernel or raise."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import _build, hier_agg, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+
+RNG = np.random.RandomState(0)
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(name):
+    return dict(rtol=2e-2, atol=2e-2) if name == "bf16" \
+        else dict(rtol=2e-4, atol=2e-5)
+
+
+def _pair(a, name):
+    """One numpy array as (jax array, torch tensor) of the same dtype and
+    bits."""
+    jd, td = DTYPES[name]
+    x = jnp.array(a, jd)
+    if name == "bf16":
+        t = torch.from_numpy(np.asarray(x).view(np.uint16).copy())
+        return x, t.view(torch.bfloat16)
+    return x, torch.from_numpy(np.asarray(x).copy()).to(td)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# shard aggregation
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_workers", [1, 2, 8, 17])
+@pytest.mark.parametrize("length", [128, 1000, 8192, 20000])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_aggregate_shards_matches_reference(n_workers, length, dtype):
+    jx, tx = _pair(RNG.randn(n_workers, length), dtype)
+    got = ops.aggregate_shards(tx, block=1024)
+    assert got.dtype == tx.dtype and got.shape == (length,)
+    np.testing.assert_allclose(_np(got), _np(jops.aggregate_shards(jx, block=1024)),
+                               **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(jref.ref_aggregate(jx)),
+                               **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(ref.ref_aggregate(tx)),
+                               **_tol(dtype))
+
+
+def test_aggregate_plain_sums_in_worker_order():
+    """The plain version is the reference kernel's arithmetic: f32 sum in
+    worker order, then / n — bit for bit on f32."""
+    x = RNG.randn(5, 777).astype(np.float32)
+    want = x[0].copy()
+    for w in range(1, 5):
+        want = want + x[w]
+    want = want / np.float32(5)
+    got = hier_agg.plain_aggregate_shards(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("length", [512, 5000])
+def test_aggregate_and_apply_matches_reference(length):
+    x = RNG.randn(4, length).astype(np.float32)
+    p = RNG.randn(length).astype(np.float32)
+    got = ops.aggregate_and_apply(torch.from_numpy(x), torch.from_numpy(p),
+                                  lr=0.05, block=512)
+    want = jref.ref_aggregate_apply(jnp.array(x), jnp.array(p), 0.05)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(
+        got.numpy(), ref.ref_aggregate_apply(torch.from_numpy(x),
+                                             torch.from_numpy(p), 0.05).numpy(),
+        rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seq,block", [(128, 64), (160, 64), (256, 128)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_causal_matches_reference(seq, block, dtype):
+    b, h, d = 2, 3, 64
+    (jq, tq), (jk, tk), (jv, tv) = [_pair(RNG.randn(b, h, seq, d), dtype)
+                                    for _ in range(3)]
+    got = ops.flash_attention(tq, tk, tv, causal=True, block_q=block,
+                              block_k=block)
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    want = jops.flash_attention(jq, jk, jv, causal=True, block_q=block,
+                                block_k=block)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(jref.ref_attention(jq, jk, jv)),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("window", [16, 64, 100])
+def test_flash_sliding_window_matches_reference(window):
+    b, h, seq, d = 1, 2, 192, 32
+    (jq, tq), (jk, tk), (jv, tv) = [_pair(RNG.randn(b, h, seq, d), "f32")
+                                    for _ in range(3)]
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window,
+                              block_q=64, block_k=64)
+    want = jops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                block_q=64, block_k=64)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(
+        _np(got), _np(ref.ref_attention(tq, tk, tv, causal=True,
+                                        window=window)),
+        rtol=2e-4, atol=2e-5)
+
+
+def test_flash_matches_model_blockwise():
+    from repro_torch.models.layers import blockwise_attention
+    b, h, seq, d = 2, 2, 128, 32
+    q, k, v = [torch.from_numpy(RNG.randn(b, h, seq, d).astype(np.float32))
+               for _ in range(3)]
+    got = ops.flash_attention(q, k, v, causal=True, block_q=64, block_k=64)
+    want = blockwise_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=True).transpose(1, 2)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-5)
+
+
+def test_flash_grads_match_reference_vjp():
+    """Backward = gradient of the blockwise attention, as the reference's
+    custom_vjp (padded sequence included)."""
+    import jax
+    b, h, seq, d = 1, 2, 80, 32
+    arrs = [RNG.randn(b, h, seq, d).astype(np.float32) for _ in range(3)]
+    g = RNG.randn(b, h, seq, d).astype(np.float32)
+    jgrads = jax.grad(lambda q, k, v: jnp.sum(jops.flash_attention(
+        q, k, v, causal=True, window=24, block_q=64, block_k=64) * g),
+        argnums=(0, 1, 2))(*map(jnp.array, arrs))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    out = ops.flash_attention(*ts, causal=True, window=24, block_q=64,
+                              block_k=64)
+    tgrads = torch.autograd.grad(out, ts, torch.from_numpy(g))
+    for a, t in zip(jgrads, tgrads):
+        np.testing.assert_allclose(t.numpy(), np.asarray(a), rtol=5e-4,
+                                   atol=1e-5)
+
+
+def test_flash_noncausal_padded_kv_raises():
+    q = torch.zeros(1, 1, 20, 32)
+    with pytest.raises(NotImplementedError):
+        ops.flash_attention(q, q, q, causal=False, block_q=16, block_k=16)
+
+
+# ---------------------------------------------------------------------------
+# dispatch: only a CPU tensor takes the plain version
+# ---------------------------------------------------------------------------
+
+
+def _no_kernels():
+    raise RuntimeError("kernel library unavailable")
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: ops.aggregate_shards(x),
+    lambda x: hier_agg.aggregate_shards(x),
+    lambda x: ops.flash_attention(x.reshape(1, 2, 64, 32),
+                                  x.reshape(1, 2, 64, 32),
+                                  x.reshape(1, 2, 64, 32)),
+    lambda x: fa.flash_attention(x.reshape(1, 2, 64, 32),
+                                 x.reshape(1, 2, 64, 32),
+                                 x.reshape(1, 2, 64, 32)),
+])
+def test_non_cpu_tensor_never_takes_plain_path(monkeypatch, call):
+    """With the loader failing, a kernel request on a non-CPU tensor (the
+    meta device stands in for CUDA here) raises instead of returning the
+    plain result, and counts no launch."""
+    monkeypatch.setattr(_build, "load", _no_kernels)
+    before = (hier_agg.LAUNCHES, fa.LAUNCHES)
+    x = torch.empty(2, 2048, device="meta")
+    with pytest.raises(RuntimeError, match="kernel library unavailable"):
+        call(x)
+    assert (hier_agg.LAUNCHES, fa.LAUNCHES) == before
+
+
+def test_cpu_calls_count_no_launch():
+    before = (hier_agg.LAUNCHES, fa.LAUNCHES)
+    x = torch.randn(3, 256)
+    ops.aggregate_shards(x)
+    q = torch.randn(1, 1, 32, 32)
+    ops.flash_attention(q, q, q)
+    assert (hier_agg.LAUNCHES, fa.LAUNCHES) == before
+
+
+def test_aggregate_and_apply_has_no_cuda_path_yet():
+    x = torch.empty(4, 512, device="meta")
+    with pytest.raises(NotImplementedError, match="B2"):
+        hier_agg.aggregate_and_apply(x, x[0], 0.1)
