@@ -19,7 +19,24 @@ non-zero before the result lines:
      flash kernel and AdamW, global batch 8 x 2048 tokens, 3 steps; the
      kernels' launch counts are checked;
   6. timing (CUDA events, median of 20) of each kernel, its plain version
-     and one PyTorch library call at the main-path shapes, with its bound.
+     and one PyTorch library call at the main-path shapes, with its bound;
+  7. the SSD scan and aggregate_and_apply against their plain versions on
+     the card: the reference's sweeps (SSD f32 2e-4 on y and the state,
+     bf16 5e-2 on y and 1e-2 on the state; apply rtol 1e-5 / atol 1e-6),
+     the SSD at mamba2-2.7b's scoring shape with the model's dtypes, and
+     aggregate_and_apply at olmo-1b's shard length;
+  8. SSM wiring at full width, depth 2, f32: the loss with the SSD kernel
+     equals the loss without it (rtol 1e-4); on the last position's logits,
+     prefill (plain chunked SSD) equals the kernel forward (rtol 1e-4 /
+     atol 1e-4), and decode after prefill (the per-token recurrence)
+     equals prefill at the reference's sequential-vs-chunked SSD tolerance
+     (rtol 3e-4 / atol 3e-4, tests/test_models_ref.py:49-52);
+  9. the second slice, full-width mamba2-2.7b in bf16 (64 layers, random
+     weights from seed 0): scoring, 3 evaluations of registry.loss_fn
+     through the SSD kernel on 8 x 2048 tokens (exactly 64 x 3 launches),
+     then serving, ServingEngine.serve_batch on 4 prompts of 2048 tokens
+     with 32 new tokens each;
+ 10. timing of the SSD scan and aggregate_and_apply as in phase 6.
 
 The second-to-last line is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero without.
@@ -43,6 +60,10 @@ N_WORKERS = 4
 GLOBAL_BATCH = 8
 SEQ = 2048
 STEPS = 3
+SCORE_EVALS = 3
+SERVE_REQUESTS = 4
+SERVE_NEW_TOKENS = 32
+LR = 0.05
 
 
 def log(*a):
@@ -204,8 +225,6 @@ def run_main_path(cfg, device, batch_size: int, seq: int, steps: int):
     """Fig. 5 training loop; returns (losses, step seconds, launches)."""
     import torch
     from repro_torch.core import tree as T
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import hier_agg
     from repro_torch.models import registry
     from repro_torch.optim import AdamW, warmup_cosine
 
@@ -218,8 +237,7 @@ def run_main_path(cfg, device, batch_size: int, seq: int, steps: int):
                for _ in range(steps)]
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     sync()
-    fa.LAUNCHES = 0
-    hier_agg.LAUNCHES = 0
+    zero_counts()
     losses, step_s = [], []
     for batch in batches:
         with torch.no_grad():                      # one loss evaluation
@@ -235,8 +253,7 @@ def run_main_path(cfg, device, batch_size: int, seq: int, steps: int):
             require(p.shape == g.shape and p.dtype == g.dtype,
                     "gradient tree does not match the params")
         del grads
-    launches = {"flash_attention": fa.LAUNCHES,
-                "aggregate_shards": hier_agg.LAUNCHES}
+    launches = kernel_counts()
     require(all(math.isfinite(x) for x in losses), f"losses {losses}")
     for p in T.leaves(params):
         require(bool(p.float().isfinite().all()), "non-finite parameters")
@@ -292,6 +309,233 @@ def time_kernels(device, main_len: int, main_shape, gen):
         bound_ms=max(flops / BF16_FLOPS_PER_S, io / HBM_BYTES_PER_S) * 1e3,
         bound_by="operations" if flops / BF16_FLOPS_PER_S
         >= io / HBM_BYTES_PER_S else "bytes")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the second slice's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_agg_apply(device, main_len: int, gen) -> float:
+    import torch
+    from repro_torch.kernels import hier_agg, ops
+    for length in (512, 5000):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(N_WORKERS, length, generator=gen,
+                            device=device).to(dtype)
+            p = torch.randn(length, generator=gen, device=device).to(dtype)
+            got = ops.aggregate_and_apply(x, p, lr=LR)
+            want = hier_agg.plain_aggregate_and_apply(x, p, LR)
+            require_close(got, want, 1e-5, 1e-6,
+                          f"aggregate_and_apply L={length} {dtype}")
+    x = torch.randn(N_WORKERS, main_len, generator=gen, device=device)
+    p = torch.randn(main_len, generator=gen, device=device)
+    got = ops.aggregate_and_apply(x, p, lr=LR)
+    want = hier_agg.plain_aggregate_and_apply(x, p, LR)
+    err = require_close(got, want, 1e-5, 1e-6,
+                        f"aggregate_and_apply ({N_WORKERS}, {main_len}) f32")
+    log(f"  aggregate_and_apply: 4 sweep cases + ({N_WORKERS}, {main_len}) "
+        f"f32 within rtol 1e-5 / atol 1e-6; main shape bit-equal "
+        f"{bool(torch.equal(got, want))}, max abs err {err:.3e}")
+    return err
+
+
+def ssd_inputs(gen, device, b, s, h, p, n, dtype, dt_dtype=None,
+               d_dtype=None):
+    """tests/test_kernels.py's distribution: x, B, C ~ N(0, 1);
+    dt = |N| * 0.5 + 0.01; A = -(|N| + 0.5); D ~ N(0, 1)."""
+    import torch
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+    x = rn(b, s, h, p).to(dtype)
+    dt = (rn(b, s, h).abs() * 0.5 + 0.01).to(dt_dtype or dtype)
+    A = -(rn(h).abs() + 0.5)
+    B, C = rn(b, s, n).to(dtype), rn(b, s, n).to(dtype)
+    D = rn(h).to(d_dtype or torch.float32)
+    return x, dt, A, B, C, D
+
+
+def ssd_tol(dtype):
+    import torch
+    if dtype == torch.bfloat16:
+        return (5e-2, 5e-2), (1e-2, 1e-2)      # y, state
+    return (2e-4, 2e-4), (2e-4, 2e-4)
+
+
+def check_ssd(device, shape, gen) -> float:
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    cases = 0
+    for s, chunk in ((64, 16), (100, 32), (256, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(gen, device, 2, s, 4, 16, 8, dtype)
+            y, S = ops.ssd_scan(*args, chunk=chunk)
+            c = min(chunk, max(16, s))
+            pad = (-s) % c
+            padded = [torch.nn.functional.pad(
+                a, [0, 0] * (a.dim() - 2) + [0, pad]) if a.dim() > 1 else a
+                for a in args]
+            wy, wS = ssd.plain_ssd_scan(*padded, c)
+            (yr, ya), (sr, sa) = ssd_tol(dtype)
+            require_close(y, wy[:, :s], yr, ya, f"ssd y s={s} chunk={chunk} "
+                          f"{dtype}")
+            require_close(S, wS, sr, sa, f"ssd state s={s} chunk={chunk} "
+                          f"{dtype}")
+            cases += 1
+    b, s, h, p, n, chunk = shape
+    args = ssd_inputs(gen, device, b, s, h, p, n, torch.bfloat16,
+                      dt_dtype=torch.float32, d_dtype=torch.bfloat16)
+    y, S = ssd.ssd_scan(*args, chunk=chunk)
+    wy, wS = ssd.plain_ssd_scan(*args, chunk)
+    (yr, ya), (sr, sa) = ssd_tol(torch.bfloat16)
+    err = require_close(y, wy, yr, ya, f"ssd y scoring shape {shape}")
+    serr = require_close(S, wS, sr, sa, f"ssd state scoring shape {shape}")
+    log(f"  ssd_scan: {cases} sweep cases within tolerance; scoring shape "
+        f"(b, s, h, p, n, chunk) = {shape}, x/B/C bf16, dt/A f32, D bf16: "
+        f"max abs err y {err:.3e}, state {serr:.3e}")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phases 8 and 9: the SSM family through the port's entry points
+# ---------------------------------------------------------------------------
+
+
+def check_ssm_wiring(cfg, device, batch_size: int, seq: int):
+    """Kernel loss == plain loss; prefill == kernel forward; decode ==
+    prefill (last position)."""
+    import torch
+    from repro_torch.core import tree as T
+    from repro_torch.models import mamba2, registry
+    params = registry.init(0, cfg, device)
+    batch = T.from_numpy(make_loader(cfg, seq).next_batch(batch_size), device)
+    toks = batch["tokens"]
+    on = cfg.replace(use_ssd_kernel=True)
+    with torch.no_grad():
+        l0 = float(registry.loss_fn(params, cfg, batch))
+        l1 = float(registry.loss_fn(params, on, batch))
+        kern = mamba2.forward(params, on, toks)[0][:, -1].float()
+        full = registry.prefill(params, cfg, {"tokens": toks})[0][:, -1]
+        _, cache = registry.prefill(params, cfg, {"tokens": toks[:, :-1]})
+        dec = registry.decode_step(params, cfg, cache, seq - 1,
+                                   toks[:, -1:])[0][:, 0]
+    log(f"  ssm wiring (d_model {cfg.d_model}, {cfg.n_layers} layers, f32, "
+        f"{batch_size} x {seq}): loss off {l0!r} on {l1!r}; last-position "
+        f"logits prefill vs kernel forward {max_err(full, kern):.3e}, decode "
+        f"vs prefill {max_err(dec, full):.3e}")
+    require(math.isfinite(l0) and abs(l1 - l0) <= 1e-4 * abs(l0),
+            f"ssm wiring loss: kernel {l1!r} vs plain {l0!r} (rtol 1e-4)")
+    require_close(full, kern, 1e-4, 1e-4, "prefill vs kernel forward")
+    require_close(dec, full, 3e-4, 3e-4, "decode vs prefill")
+
+
+def kernel_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hier_agg
+    from repro_torch.kernels import ssd_scan as ssd
+    return {"aggregate_shards": hier_agg.LAUNCHES,
+            "aggregate_and_apply": hier_agg.APPLY_LAUNCHES,
+            "flash_attention": fa.LAUNCHES, "ssd_scan": ssd.LAUNCHES}
+
+
+def zero_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hier_agg
+    from repro_torch.kernels import ssd_scan as ssd
+    hier_agg.LAUNCHES = hier_agg.APPLY_LAUNCHES = 0
+    fa.LAUNCHES = ssd.LAUNCHES = 0
+
+
+def run_scoring(cfg, params, device, batch_size: int, seq: int, evals: int):
+    """registry.loss_fn through the SSD kernel; returns (losses, seconds,
+    launches)."""
+    import torch
+    from repro_torch.core import tree as T
+    from repro_torch.models import registry
+    loader = make_loader(cfg, seq)
+    batches = [T.from_numpy(loader.next_batch(batch_size), device)
+               for _ in range(evals)]
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    zero_counts()
+    losses, secs = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            loss = registry.loss_fn(params, cfg, batch)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = kernel_counts()
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    return losses, secs, launches
+
+
+def run_serving(cfg, params, device, n_requests: int, prompt_len: int,
+                new_tokens: int):
+    """ServingEngine.serve_batch; returns (completions, stats, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import Request, ServingEngine
+    rng = np.random.RandomState(0)
+    reqs = [Request(i, rng.randint(0, cfg.vocab_size, prompt_len)
+                    .astype(np.int32), new_tokens) for i in range(n_requests)]
+    engine = ServingEngine(cfg, params=params, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    zero_counts()
+    out = engine.serve_batch(reqs)
+    launches = kernel_counts()
+    require([c.rid for c in out] == list(range(n_requests)),
+            "completions out of order")
+    for c in out:
+        require(c.tokens.shape == (new_tokens,), f"tokens {c.tokens.shape}")
+        require(bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
+                "a generated token is outside the vocabulary")
+    return out, engine.last_stats, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: timing of the second slice's kernels
+# ---------------------------------------------------------------------------
+
+
+def time_slice_kernels(device, main_len: int, shape, gen):
+    import torch
+    from repro_torch.kernels import hier_agg
+    from repro_torch.kernels import ssd_scan as ssd
+    out = {}
+    b, s, h, p, n, chunk = shape
+    args = ssd_inputs(gen, device, b, s, h, p, n, torch.bfloat16,
+                      dt_dtype=torch.float32, d_dtype=torch.bfloat16)
+    # the pairs the causal mask leaves (C B^T and scores @ x dt), plus
+    # C @ S and the state update, for each (b*h, chunk)
+    flops = b * h * (s // chunk) * (
+        (n + p) * chunk * (chunk + 1) + 4 * chunk * n * p)
+    io = sum(a.numel() * a.element_size() for a in args)       # inputs once
+    io += args[0].numel() * args[0].element_size() + b * h * n * p * 4
+    out["ssd_scan"] = dict(
+        ms=time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk)),
+        plain_ms=time_ms(lambda: ssd.plain_ssd_scan(*args, chunk)),
+        library_ms=None,
+        bound_ms=max(flops / BF16_FLOPS_PER_S, io / HBM_BYTES_PER_S) * 1e3,
+        bound_by="operations" if flops / BF16_FLOPS_PER_S
+        >= io / HBM_BYTES_PER_S else "bytes")
+    log(f"  ssd_scan bound inputs: {flops} FLOPs, {io} bytes")
+    del args
+    x = torch.randn(N_WORKERS, main_len, generator=gen, device=device)
+    p = torch.randn(main_len, generator=gen, device=device)
+    nbytes = (N_WORKERS + 2) * main_len * x.element_size()
+    out["aggregate_and_apply"] = dict(
+        ms=time_ms(lambda: hier_agg.aggregate_and_apply(x, p, LR)),
+        plain_ms=time_ms(lambda: hier_agg.plain_aggregate_and_apply(x, p,
+                                                                    LR)),
+        library_ms=time_ms(lambda: (p.float() - LR * x.mean(
+            0, dtype=torch.float32)).to(p.dtype)),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
     return out
 
 
@@ -353,7 +597,8 @@ def main() -> int:
         f"({peak / 2**30:.2f} GiB)")
     want = {"flash_attention": cfg.n_layers * N_WORKERS * STEPS
             + cfg.n_layers * STEPS,
-            "aggregate_shards": N_WORKERS * STEPS}
+            "aggregate_shards": N_WORKERS * STEPS,
+            "aggregate_and_apply": 0, "ssd_scan": 0}
     log(f"  launches {launches}, expected {want}")
     require(launches == want, f"launch counts {launches} != {want}")
     torch.cuda.empty_cache()
@@ -362,6 +607,64 @@ def main() -> int:
     times = time_kernels(device, flat_len, main_shape, gen)
     for name, t in times.items():
         log(f"  {name}: {t}")
+
+    ssm = ARCHS["mamba2-2.7b"]
+    ssd_shape = (GLOBAL_BATCH, SEQ, ssm.ssm_nheads, ssm.ssm_headdim,
+                 ssm.ssm_state, min(ssm.ssm_chunk, SEQ))
+    log("[7] SSD scan and aggregate_and_apply vs plain versions")
+    ssd_err = check_ssd(device, ssd_shape, gen)
+    apply_err = check_agg_apply(device, flat_len, gen)
+    torch.cuda.empty_cache()
+
+    log("[8] SSM wiring at full width, depth 2, f32")
+    check_ssm_wiring(ssm.replace(n_layers=2, dtype=torch.float32), device,
+                     GLOBAL_BATCH, SEQ)
+    torch.cuda.empty_cache()
+
+    scfg = ssm.replace(use_ssd_kernel=True)
+    n_ssm = registry.param_count(scfg)
+    log(f"[9] slice 2: {scfg.arch_id} {scfg.n_layers} layers d_model "
+        f"{scfg.d_model}, {scfg.ssm_nheads} heads of {scfg.ssm_headdim}, "
+        f"state {scfg.ssm_state}, chunk {scfg.ssm_chunk}, bf16, {n_ssm} "
+        "params, random weights from seed 0; nothing cut")
+    require(n_ssm == 2_702_296_576, f"mamba2-2.7b has {n_ssm} params")
+    params = registry.init(0, scfg, device)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, score_launches = run_scoring(scfg, params, device,
+                                               GLOBAL_BATCH, SEQ, SCORE_EVALS)
+    score_peak = torch.cuda.max_memory_allocated()
+    log(f"  scoring: {SCORE_EVALS} evaluations of loss_fn on "
+        f"{GLOBAL_BATCH} x {SEQ} tokens: losses {losses}")
+    log(f"  scoring seconds {secs}; tokens/s {[tokens / t for t in secs]}; "
+        f"peak memory {score_peak} bytes ({score_peak / 2**30:.2f} GiB)")
+    want = {"aggregate_shards": 0, "aggregate_and_apply": 0,
+            "flash_attention": 0, "ssd_scan": scfg.n_layers * SCORE_EVALS}
+    log(f"  scoring launches {score_launches}, expected {want}")
+    require(score_launches == want,
+            f"scoring launch counts {score_launches} != {want}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, stats, serve_launches = run_serving(scfg, params, device,
+                                             SERVE_REQUESTS, SEQ,
+                                             SERVE_NEW_TOKENS)
+    serve_peak = torch.cuda.max_memory_allocated()
+    per_tok_ms = stats["decode_s"] / (SERVE_NEW_TOKENS - 1) \
+        / SERVE_REQUESTS * 1e3
+    log(f"  serving: {SERVE_REQUESTS} requests x {SEQ}-token prompts, "
+        f"{SERVE_NEW_TOKENS} new tokens each; prefill {stats['prefill_s']!r} s "
+        f"({SERVE_REQUESTS * SEQ / stats['prefill_s']!r} tokens/s), decode "
+        f"{stats['decode_s']!r} s ({per_tok_ms!r} ms per token per request); "
+        f"peak memory {serve_peak} bytes ({serve_peak / 2**30:.2f} GiB)")
+    log(f"  serving launches {serve_launches} (prefill runs the plain "
+        f"chunked SSD from a zero cache, decode the recurrence); first "
+        f"request's tokens {out[0].tokens.tolist()}")
+    del params, out
+    torch.cuda.empty_cache()
+
+    log("[10] timing of the slice's kernels (CUDA events, median of 20)")
+    times.update(time_slice_kernels(device, flat_len, ssd_shape, gen))
+    for name in ("ssd_scan", "aggregate_and_apply"):
+        log(f"  {name}: {times[name]}")
 
     kernels = [
         dict(name="aggregate_shards", route="cuda",
@@ -374,6 +677,18 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention.py:26",
              launches=launches["flash_attention"], max_abs_err=flash_err,
              **times["flash_attention"]),
+        dict(name="aggregate_and_apply", route="cuda",
+             source="src/repro_torch/kernels/csrc/hier_agg.cu",
+             replaces="src/repro/kernels/hier_agg.py:31",
+             launches=(launches["aggregate_and_apply"]
+                       + score_launches["aggregate_and_apply"]
+                       + serve_launches["aggregate_and_apply"]),
+             max_abs_err=apply_err, **times["aggregate_and_apply"]),
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:25",
+             launches=score_launches["ssd_scan"], max_abs_err=ssd_err,
+             **times["ssd_scan"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

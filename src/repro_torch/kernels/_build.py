@@ -18,11 +18,11 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("hier_agg.cu", "flash_attention.cu")
+SOURCES = ("hier_agg.cu", "flash_attention.cu", "ssd_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # no --use_fast_math: the aggregation must divide exactly as the plain
-# version does, and the softmax uses the accurate expf
+# version does, and the softmax and the SSD decays use the accurate expf
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
@@ -87,9 +87,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.smlt_aggregate_shards.argtypes = [p, p, i64, i64, i32, p]
     lib.smlt_aggregate_shards.restype = i32
+    lib.smlt_aggregate_and_apply.argtypes = [p, p, p, i64, i64,
+                                             ctypes.c_float, i32, p]
+    lib.smlt_aggregate_and_apply.restype = i32
     lib.smlt_flash_attention_fwd.argtypes = [
         p, p, p, p, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, p]
     lib.smlt_flash_attention_fwd.restype = i32
+    lib.smlt_ssd_scan.argtypes = [p] * 8 + [i32] * 6 + [i64] * 4 + [i32, p]
+    lib.smlt_ssd_scan.restype = i32
     return lib
 
 

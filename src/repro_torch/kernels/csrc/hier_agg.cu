@@ -1,10 +1,14 @@
 // Shard aggregation, step 3 of SMLT's Fig. 5: out[i] = mean_w shards[w][i]
 // for an (n, L) row-major stack. Replaces the Pallas kernel
-// src/repro/kernels/hier_agg.py::_agg_kernel.
+// src/repro/kernels/hier_agg.py::_agg_kernel. A second entry,
+// smlt_aggregate_and_apply, replaces _agg_apply_kernel: the same mean g,
+// then out[i] = param_f32[i] - lr * g[i], rounded once to param's type
+// (the reference bakes lr into the kernel; here it is an argument).
 //
 // What bounds it on an H100: bytes. It reads n*L elements and writes L, one
 // add per element read, so it sits far below the card's ridge point; the
-// least time is (n + 1) * L * sizeof(T) / 3.35 TB/s.
+// least time is (n + 1) * L * sizeof(T) / 3.35 TB/s, and (n + 2) * L *
+// sizeof(T) / 3.35 TB/s with the parameter read.
 //
 // Design: a grid-stride loop over L; each thread owns VEC consecutive
 // elements (one 16-byte load per worker row, neighbouring threads on
@@ -12,7 +16,8 @@
 // accumulating in f32. Then acc / n (an IEEE division: this file is built
 // without fast math) and one rounding to the input type. The sum order and
 // the division are the plain version's, so an f32 result equals it bit for
-// bit.
+// bit. The apply step multiplies and subtracts with __fmul_rn / __fsub_rn,
+// so no fused multiply-add changes its rounding either.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -39,10 +44,11 @@ struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
-template <typename T, int VEC>
+// APPLY = false: out = mean; APPLY = true: out = param - lr * mean
+template <typename T, int VEC, bool APPLY>
 __global__ void __launch_bounds__(256)
-    agg_kernel(const T* __restrict__ shards, T* __restrict__ out, int64_t n,
-               int64_t L) {
+    agg_kernel(const T* __restrict__ shards, const T* __restrict__ param,
+               T* __restrict__ out, int64_t n, int64_t L, float lr) {
   using P = Pack<T, VEC>;
   const int64_t nvec = L / VEC;
   const float fn = static_cast<float>(n);
@@ -59,21 +65,30 @@ __global__ void __launch_bounds__(256)
       for (int e = 0; e < VEC; ++e) acc[e] = acc[e] + to_f32(x.v[e]);
     }
     P y;
+    if constexpr (APPLY) {
+      const P w = reinterpret_cast<const P*>(param)[i];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) y.v[e] = from_f32<T>(acc[e] / fn);
+      for (int e = 0; e < VEC; ++e)
+        y.v[e] = from_f32<T>(
+            __fsub_rn(to_f32(w.v[e]), __fmul_rn(lr, acc[e] / fn)));
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) y.v[e] = from_f32<T>(acc[e] / fn);
+    }
     reinterpret_cast<P*>(out)[i] = y;
   }
 }
 
-template <typename T, int VEC>
-int launch(const void* shards, void* out, int64_t n, int64_t L,
-           cudaStream_t stream) {
+template <typename T, int VEC, bool APPLY>
+int launch(const void* shards, const void* param, void* out, int64_t n,
+           int64_t L, float lr, cudaStream_t stream) {
   const int threads = 256;
   const int64_t nvec = L / VEC;
   const int64_t want = (nvec + threads - 1) / threads;
   const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  agg_kernel<T, VEC><<<blocks, threads, 0, stream>>>(
-      static_cast<const T*>(shards), static_cast<T*>(out), n, L);
+  agg_kernel<T, VEC, APPLY><<<blocks, threads, 0, stream>>>(
+      static_cast<const T*>(shards), static_cast<const T*>(param),
+      static_cast<T*>(out), n, L, lr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -81,23 +96,38 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 on success).
-extern "C" int smlt_aggregate_shards(const void* shards, void* out, int64_t n,
-                                     int64_t L, int dtype, void* stream) {
+template <bool APPLY>
+int dispatch(const void* shards, const void* param, void* out, int64_t n,
+             int64_t L, float lr, int dtype, cudaStream_t s) {
   if (n < 1 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec_ok = aligned16(shards) && aligned16(out);
+  const bool vec_ok = aligned16(shards) && aligned16(out) &&
+                      (!APPLY || aligned16(param));
   if (dtype == 0) {
-    if (vec_ok && L % 4 == 0) return launch<float, 4>(shards, out, n, L, s);
-    return launch<float, 1>(shards, out, n, L, s);
+    if (vec_ok && L % 4 == 0)
+      return launch<float, 4, APPLY>(shards, param, out, n, L, lr, s);
+    return launch<float, 1, APPLY>(shards, param, out, n, L, lr, s);
   }
   if (dtype == 1) {
     if (vec_ok && L % 8 == 0)
-      return launch<__nv_bfloat16, 8>(shards, out, n, L, s);
-    return launch<__nv_bfloat16, 1>(shards, out, n, L, s);
+      return launch<__nv_bfloat16, 8, APPLY>(shards, param, out, n, L, lr, s);
+    return launch<__nv_bfloat16, 1, APPLY>(shards, param, out, n, L, lr, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (shards, param and out alike). Each
+// returns cudaGetLastError() after the launch (0 on success).
+extern "C" int smlt_aggregate_shards(const void* shards, void* out, int64_t n,
+                                     int64_t L, int dtype, void* stream) {
+  return dispatch<false>(shards, nullptr, out, n, L, 0.f, dtype,
+                         static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int smlt_aggregate_and_apply(const void* shards, const void* param,
+                                        void* out, int64_t n, int64_t L,
+                                        float lr, int dtype, void* stream) {
+  return dispatch<true>(shards, param, out, n, L, lr, dtype,
+                        static_cast<cudaStream_t>(stream));
 }

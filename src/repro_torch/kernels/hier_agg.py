@@ -9,9 +9,13 @@ elements cross device memory, so the least time is (n + 1) * L * itemsize
 sums in worker order in f32, then divides by n: the plain version's
 arithmetic, so f32 results are bit-equal to it.
 
+``aggregate_and_apply`` replaces ``_agg_apply_kernel`` with a second entry
+of the same CUDA file: the same mean, then ``param - lr * mean`` in f32,
+rounded once to the parameter's dtype; bound by (n + 2) * L elements of
+bytes. Its f32 results are bit-equal to its plain version too.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. ``aggregate_and_apply`` (``_agg_apply_kernel``, ROADMAP B2) has
-only its plain version so far and raises on a CUDA tensor.
+raises.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 from repro_torch.kernels import _build
 
 LAUNCHES = 0  # kernel launches of aggregate_shards (plain calls not counted)
+APPLY_LAUNCHES = 0  # kernel launches of aggregate_and_apply
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -67,8 +72,27 @@ def aggregate_shards(shards: torch.Tensor) -> torch.Tensor:
 
 def aggregate_and_apply(shards: torch.Tensor, param: torch.Tensor,
                         lr: float) -> torch.Tensor:
-    """Fused mean + SGD apply on the owned shard (plain version only)."""
+    """Fused mean + SGD apply on the owned shard: (n, L) shards and an (L,)
+    param of the same dtype -> (L,) ``param - lr * mean``."""
+    if shards.dim() != 2 or param.shape != shards.shape[1:]:
+        raise ValueError(f"shards (n, L) and param (L,) wanted, got "
+                         f"{tuple(shards.shape)} and {tuple(param.shape)}")
     if shards.device.type == "cpu":
         return plain_aggregate_and_apply(shards, param, lr)
-    raise NotImplementedError(
-        "aggregate_and_apply has no CUDA kernel yet (ROADMAP B2)")
+    if shards.dtype not in _DTYPES or param.dtype != shards.dtype:
+        raise TypeError(f"aggregate_and_apply takes f32 or bf16 shards and "
+                        f"param of one dtype, got {shards.dtype}, "
+                        f"{param.dtype}")
+    global APPLY_LAUNCHES
+    lib = _build.load()
+    shards, param = shards.contiguous(), param.contiguous()
+    n, length = shards.shape
+    out = torch.empty_like(param)
+    with torch.cuda.device(shards.device):   # the launch's current device
+        err = lib.smlt_aggregate_and_apply(
+            shards.data_ptr(), param.data_ptr(), out.data_ptr(), n, length,
+            float(lr), _DTYPES[shards.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "smlt_aggregate_and_apply")
+    APPLY_LAUNCHES += 1
+    return out

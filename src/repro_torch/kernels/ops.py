@@ -1,14 +1,14 @@
 """Public kernel entry points with the reference's signatures and padding
 rules (port of the JAX package's ``kernels/ops.py``): pad to block
 multiples, run the kernel wrapper, slice back. Each wrapper launches its
-CUDA kernel on a CUDA tensor and runs its plain version on a CPU tensor.
-The Mamba2 ``ssd_scan`` entry (ROADMAP B4) is not ported yet."""
+CUDA kernel on a CUDA tensor and runs its plain version on a CPU tensor."""
 from __future__ import annotations
 
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import hier_agg as _hier
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def _pad_to(x, dim: int, mult: int):
@@ -50,3 +50,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             "non-causal flash with padded kv not supported; pad inputs")
     out = _flash.FlashAttention.apply(qp, kp, vp, causal, window)
     return out[:, :, :sq]
+
+
+def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256):
+    """Mamba2 SSD over (b, s, h, p); pads seq to the chunk multiple (padded
+    dt = 0 leaves the state unchanged, so the final state needs no
+    slicing)."""
+    s = x.shape[1]
+    chunk = min(chunk, max(16, s))
+    xp, _ = _pad_to(x, 1, chunk)
+    dtp, _ = _pad_to(dt, 1, chunk)
+    Bp, _ = _pad_to(B, 1, chunk)
+    Cp, _ = _pad_to(C, 1, chunk)
+    y, final = _ssd.ssd_scan(xp, dtp, A, Bp, Cp, D, chunk=chunk)
+    return y[:, :s], final

@@ -31,3 +31,22 @@ def ref_attention(q, k, v, *, causal: bool = True, window: int = 0):
     s = torch.where(mask, s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def ref_ssd(x, dt, A, B, C, D):
+    """Sequential (per-token) SSD recurrence — the O(s) definition.
+    x: (b, s, h, p)  dt: (b, s, h)  A, D: (h,)  B, C: (b, s, n)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf, Cf = B.float(), C.float()
+    S = torch.zeros(b, h, n, p, dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        xt, dtt, Bt, Ct = xf[:, t], dtf[:, t], Bf[:, t], Cf[:, t]
+        dA = torch.exp(dtt * Af)                                  # (b, h)
+        S = S * dA[..., None, None] + torch.einsum(
+            "bn,bhp->bhnp", Bt, xt * dtt[..., None])
+        ys.append(torch.einsum("bn,bhnp->bhp", Ct, S))
+    y = torch.stack(ys, dim=1) + D.float()[None, None, :, None] * xf
+    return y.to(x.dtype), S

@@ -61,6 +61,12 @@ def apply_norm(params, cfg: ModelConfig, x, eps: float = 1e-5):
     return y.to(x.dtype)
 
 
+def rmsnorm_raw(x, scale, eps: float = 1e-5):
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # rotary position embedding
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Family registry: one API over the architecture families (port of the JAX
-package's ``models/registry.py``; the dense family only so far).
+package's ``models/registry.py``; the dense and ssm families so far).
 
     init(seed, cfg, device)        -> params
     loss_fn(params, cfg, batch)    -> scalar loss
     prefill(params, cfg, batch)    -> (logits, cache)
     decode_step(params, cfg, cache, pos, tokens) -> (logits, cache)
+    init_decode_cache(params, cfg, batch, max_seq) -> an empty cache
 
 plus ``param_count`` (on the meta device: nothing is allocated) and the
 weight bridge to the reference, ``params_from_numpy``/``params_to_numpy``.
@@ -14,14 +15,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import tree as T
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, transformer
 from repro_torch.models.base import ModelConfig
 
-_FAMILIES = {"dense": transformer}
+_FAMILIES = {"dense": transformer, "ssm": mamba2}
 
 # the ROADMAP item that ports each family not yet in the port
-_PENDING = {"moe": "A13", "ssm": "A12", "hybrid": "A12", "vlm": "A14",
-            "audio": "A14"}
+_PENDING = {"moe": "A13", "hybrid": "A12", "vlm": "A14", "audio": "A14"}
 
 
 def family_module(cfg: ModelConfig):
@@ -58,6 +58,18 @@ def prefill(params, cfg: ModelConfig, batch, max_seq=None):
 
 def decode_step(params, cfg: ModelConfig, cache, pos, tokens):
     return family_module(cfg).decode_step(params, cfg, cache, pos, tokens)
+
+
+def init_decode_cache(params, cfg: ModelConfig, batch: int, max_seq: int,
+                      batch_extras=None):
+    """An empty cache for decoding without a prefill, on the params'
+    device. The cross-attention families (which derive theirs from
+    ``batch_extras``) are not ported yet."""
+    mod = family_module(cfg)
+    device = T.leaves(params)[0].device
+    if cfg.family == "dense":
+        return mod.init_cache(cfg, batch, max_seq, device)
+    return mod.init_cache(cfg, batch, device=device)
 
 
 def param_count(cfg: ModelConfig) -> int:

@@ -60,23 +60,29 @@ def _unbind_layers(tree, n: int):
     return [T.unflatten(tree, [u[i] for u in per_leaf]) for i in range(n)]
 
 
-def _run_blocks(params, cfg: ModelConfig, h, *, positions=None, cache=None,
-                cache_index=None):
-    """Run all blocks in order. ``cache`` (if given) is stacked on the layer
-    axis, and so is the returned cache."""
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet")
-    n = cfg.n_layers
-    blocks = _unbind_layers(params["blocks"], n)
+def run_layers(h, blocks, cache, n: int, apply):
+    """Run ``apply(h, bp, c) -> (h, new_c)`` over the n stacked layers in
+    order. ``cache`` (if given) is stacked on the layer axis, and so is
+    the returned cache; without one the result's cache is None."""
+    bps = _unbind_layers(blocks, n)
     caches = _unbind_layers(cache, n) if cache is not None else [None] * n
     new_caches = []
-    for bp, c in zip(blocks, caches):
-        h, nc = apply_block(bp, cfg, h, positions=positions, cache=c,
-                            cache_index=cache_index)
+    for bp, c in zip(bps, caches):
+        h, nc = apply(h, bp, c)
         new_caches.append(nc)
     if cache is None:
         return h, None
     return h, {k: torch.stack([c[k] for c in new_caches]) for k in cache}
+
+
+def _run_blocks(params, cfg: ModelConfig, h, *, positions=None, cache=None,
+                cache_index=None):
+    if cfg.remat:
+        raise NotImplementedError("remat is not ported yet")
+    return run_layers(h, params["blocks"], cache, cfg.n_layers,
+                      lambda h, bp, c: apply_block(
+                          bp, cfg, h, positions=positions, cache=c,
+                          cache_index=cache_index))
 
 
 def forward(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,

@@ -8,6 +8,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import hier_agg, ops  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -77,6 +78,79 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         fa.flash_attention(x, x, x)
     with pytest.raises(TypeError):
         hier_agg.aggregate_shards(_randn(gen, 2, 8, dtype=torch.float16))
-    with pytest.raises(NotImplementedError, match="B2"):
-        x = _randn(gen, 2, 128)
+    with pytest.raises(TypeError):
+        x = _randn(gen, 2, 128, dtype=torch.float16)
         ops.aggregate_and_apply(x, x[0], lr=0.1)
+    with pytest.raises(ValueError, match="param"):
+        x = _randn(gen, 2, 128)
+        hier_agg.aggregate_and_apply(x, x[0, :100], 0.1)
+    with pytest.raises(ValueError, match="head dim"):
+        x = _randn(gen, 1, 32, 2, 128)
+        hv, bc = _randn(gen, 2), _randn(gen, 1, 32, 8)
+        ssd.ssd_scan(x, _randn(gen, 1, 32, 2), hv, bc, bc, hv, chunk=16)
+
+
+@pytest.mark.parametrize("length", [512, 5000, 100_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_aggregate_and_apply_kernel_matches_plain(gen, length, dtype):
+    x = _randn(gen, 4, length, dtype=dtype)
+    p = _randn(gen, length, dtype=dtype)
+    before = hier_agg.APPLY_LAUNCHES
+    got = ops.aggregate_and_apply(x, p, lr=0.05)
+    assert hier_agg.APPLY_LAUNCHES == before + 1
+    want = hier_agg.plain_aggregate_and_apply(x, p, 0.05)
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-5,
+                               atol=1e-6)
+
+
+def _ssd_args(gen, b, s, h, p, n, dtype):
+    x = _randn(gen, b, s, h, p, dtype=dtype)
+    dt = (_randn(gen, b, s, h).abs() * 0.5 + 0.01).to(dtype)
+    A = -(_randn(gen, h).abs() + 0.5)
+    B, C = _randn(gen, b, s, n, dtype=dtype), _randn(gen, b, s, n, dtype=dtype)
+    return x, dt, A, B, C, _randn(gen, h)
+
+
+@pytest.mark.parametrize("s,chunk", [(64, 16), (100, 32), (256, 64),
+                                     (300, 256), (512, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,n", [(16, 8), (64, 128)])
+def test_ssd_kernel_matches_plain(gen, s, chunk, dtype, p, n):
+    args = _ssd_args(gen, 2, s, 4, p, n, dtype)
+    before = ssd.LAUNCHES
+    y, S = ops.ssd_scan(*args, chunk=chunk)
+    assert ssd.LAUNCHES == before + 1
+    c = min(chunk, max(16, s))
+    pad = (-s) % c
+    padded = [torch.nn.functional.pad(a, [0, 0] * (a.dim() - 2) + [0, pad])
+              if a.dim() > 1 else a for a in args]
+    wy, wS = ssd.plain_ssd_scan(*padded, c)
+    ytol = dict(rtol=5e-2, atol=5e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=2e-4, atol=2e-4)
+    stol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(y.float(), wy[:, :s].float(), **ytol)
+    torch.testing.assert_close(S, wS, **stol)
+
+
+def test_ssd_kernel_reads_strided_B_C_views(gen):
+    """B and C as the two halves of one (b, s, 2n) tensor, as the model
+    splits them."""
+    x, dt, A, _, _, D = _ssd_args(gen, 2, 128, 3, 64, 32, torch.float32)
+    BC = _randn(gen, 2, 128, 64)
+    B, C = torch.split(BC, 32, dim=-1)
+    y, S = ssd.ssd_scan(x, dt, A, B, C, D, chunk=64)
+    wy, wS = ssd.plain_ssd_scan(x, dt, A, B.contiguous(), C.contiguous(), D,
+                                64)
+    torch.testing.assert_close(y, wy, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(S, wS, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_kernel_refuses_requires_grad(gen):
+    x, dt, A, B, C, D = _ssd_args(gen, 1, 64, 2, 16, 8, torch.float32)
+    before = ssd.LAUNCHES
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd.ssd_scan(x.requires_grad_(True), dt, A, B, C, D, chunk=32)
+    assert ssd.LAUNCHES == before

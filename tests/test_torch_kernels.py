@@ -1,7 +1,8 @@
 """The port's kernel entry points (``repro_torch.kernels``) against the
 reference's (``repro.kernels.ops`` in Pallas interpret mode, and
 ``repro.kernels.ref``) over the sweeps of ``tests/test_kernels.py``, at its
-tolerances. On the CPU each wrapper runs its plain version; a tensor on any
+tolerances (the SSD scan's: f32 2e-4 on y and the state; bf16 5e-2 on y,
+1e-2 on the state). On the CPU each wrapper runs its plain version; a tensor on any
 other device must reach the kernel or raise."""
 import pytest
 
@@ -14,6 +15,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import _build, hier_agg, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 RNG = np.random.RandomState(0)
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -164,6 +166,78 @@ def test_flash_noncausal_padded_kv_raises():
 
 
 # ---------------------------------------------------------------------------
+# SSD chunked scan
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(b, s, h, p, n, name="f32"):
+    """tests/test_kernels.py's inputs: x, dt, B, C in the swept dtype; A
+    and D in f32. Returns (jax arrays, torch tensors)."""
+    arrs = (RNG.randn(b, s, h, p), np.abs(RNG.randn(b, s, h)) * 0.5 + 0.01,
+            -(np.abs(RNG.randn(h)) + 0.5), RNG.randn(b, s, n),
+            RNG.randn(b, s, n), RNG.randn(h))
+    names = (name, name, "f32", name, name, "f32")
+    pairs = [_pair(a, nm) for a, nm in zip(arrs, names)]
+    return [j for j, _ in pairs], [t for _, t in pairs]
+
+
+@pytest.mark.parametrize("s,chunk", [(64, 16), (100, 32), (256, 64)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_ssd_scan_matches_reference(s, chunk, dtype):
+    jargs, targs = _ssd_inputs(2, s, 4, 16, 8, dtype)
+    y, S = ops.ssd_scan(*targs, chunk=chunk)
+    assert y.dtype == targs[0].dtype and y.shape == targs[0].shape
+    assert S.dtype == torch.float32 and S.shape == (2, 4, 8, 16)
+    jy, jS = jops.ssd_scan(*jargs, chunk=chunk)
+    ry, rS = jref.ref_ssd(*jargs)
+    ty, tS = ref.ref_ssd(*targs)
+    ytol = dict(rtol=5e-2, atol=5e-2) if dtype == "bf16" \
+        else dict(rtol=2e-4, atol=2e-4)
+    stol = dict(rtol=1e-2, atol=1e-2) if dtype == "bf16" \
+        else dict(rtol=2e-4, atol=2e-4)
+    for want_y, want_S in ((jy, jS), (ry, rS), (ty, tS)):
+        np.testing.assert_allclose(_np(y), _np(want_y), **ytol)
+        np.testing.assert_allclose(_np(S), _np(want_S), **stol)
+
+
+def test_ssd_plain_matches_model_chunked():
+    from repro_torch.models.mamba2 import ssd_chunked
+    _, targs = _ssd_inputs(1, 96, 2, 8, 4)
+    y, S = ops.ssd_scan(*targs, chunk=32)
+    y2, S2 = ssd_chunked(*targs, 32)
+    np.testing.assert_allclose(y.numpy(), y2.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(S.numpy(), S2.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_scan_takes_the_model_path_dtypes():
+    """x, B, C bf16; dt, A f32; D a bf16 parameter: the mix the model hands
+    the kernel, against the reference's Pallas kernel on the same mix."""
+    b, s, h, p, n = 2, 64, 4, 16, 8
+    x, B, C = (_pair(RNG.randn(*shape), "bf16")
+               for shape in ((b, s, h, p), (b, s, n), (b, s, n)))
+    dt = _pair(np.abs(RNG.randn(b, s, h)) * 0.5 + 0.01, "f32")
+    A = _pair(-(np.abs(RNG.randn(h)) + 0.5), "f32")
+    D = _pair(RNG.randn(h), "bf16")
+    jargs, targs = zip(*(x, dt, A, B, C, D))
+    y, S = ops.ssd_scan(*targs, chunk=16)
+    jy, jS = jops.ssd_scan(*jargs, chunk=16)
+    assert y.dtype == torch.bfloat16 and S.dtype == torch.float32
+    np.testing.assert_allclose(_np(y), _np(jy), rtol=5e-2, atol=5e-2)
+    np.testing.assert_allclose(_np(S), _np(jS), rtol=1e-2, atol=1e-2)
+
+
+def test_ssd_scan_pads_to_the_chunk_and_keeps_the_state():
+    """s = 40 with chunk 16 pads to 48; padded dt = 0 leaves the state as
+    the unpadded recurrence leaves it."""
+    _, targs = _ssd_inputs(1, 40, 2, 8, 4)
+    y, S = ops.ssd_scan(*targs, chunk=16)
+    ry, rS = ref.ref_ssd(*targs)
+    assert y.shape == targs[0].shape
+    np.testing.assert_allclose(y.numpy(), ry.numpy(), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(S.numpy(), rS.numpy(), rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
 # dispatch: only a CPU tensor takes the plain version
 # ---------------------------------------------------------------------------
 
@@ -181,29 +255,48 @@ def _no_kernels():
     lambda x: fa.flash_attention(x.reshape(1, 2, 64, 32),
                                  x.reshape(1, 2, 64, 32),
                                  x.reshape(1, 2, 64, 32)),
+    lambda x: ops.aggregate_and_apply(x, x[0], lr=0.1),
+    lambda x: hier_agg.aggregate_and_apply(x, x[0], 0.1),
+    lambda x: ops.ssd_scan(x.reshape(1, 64, 2, 32), x[0, :128].reshape(1, 64, 2),
+                           x[0, :2], x[:, :512].reshape(1, 64, 16),
+                           x[:, :512].reshape(1, 64, 16), x[0, :2], chunk=32),
 ])
 def test_non_cpu_tensor_never_takes_plain_path(monkeypatch, call):
     """With the loader failing, a kernel request on a non-CPU tensor (the
     meta device stands in for CUDA here) raises instead of returning the
     plain result, and counts no launch."""
     monkeypatch.setattr(_build, "load", _no_kernels)
-    before = (hier_agg.LAUNCHES, fa.LAUNCHES)
+    before = _launches()
     x = torch.empty(2, 2048, device="meta")
     with pytest.raises(RuntimeError, match="kernel library unavailable"):
         call(x)
-    assert (hier_agg.LAUNCHES, fa.LAUNCHES) == before
+    assert _launches() == before
+
+
+def _launches():
+    return (hier_agg.LAUNCHES, hier_agg.APPLY_LAUNCHES, fa.LAUNCHES,
+            ssd.LAUNCHES)
 
 
 def test_cpu_calls_count_no_launch():
-    before = (hier_agg.LAUNCHES, fa.LAUNCHES)
+    before = _launches()
     x = torch.randn(3, 256)
     ops.aggregate_shards(x)
+    ops.aggregate_and_apply(x, x[0], lr=0.1)
     q = torch.randn(1, 1, 32, 32)
     ops.flash_attention(q, q, q)
-    assert (hier_agg.LAUNCHES, fa.LAUNCHES) == before
+    _, targs = _ssd_inputs(1, 32, 2, 8, 4)
+    ops.ssd_scan(*targs, chunk=16)
+    assert _launches() == before
 
 
 def test_aggregate_and_apply_has_no_cuda_path_yet():
+    """The CUDA path exists now (ROADMAP B2 done); on a non-CPU tensor the
+    wrapper refuses what its kernel does not take before loading it."""
     x = torch.empty(4, 512, device="meta")
-    with pytest.raises(NotImplementedError, match="B2"):
-        hier_agg.aggregate_and_apply(x, x[0], 0.1)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        hier_agg.aggregate_and_apply(x.half(), x[0].half(), 0.1)
+    with pytest.raises(TypeError, match="one dtype"):
+        hier_agg.aggregate_and_apply(x, x[0].bfloat16(), 0.1)
+    with pytest.raises(ValueError, match="param"):
+        hier_agg.aggregate_and_apply(x, x[0, :500], 0.1)

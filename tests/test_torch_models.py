@@ -223,7 +223,7 @@ def test_olmo_1b_full_width():
 
 def test_other_families_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="A12"):
-        registry.param_count(ARCHS["mamba2-2.7b"])
+        registry.param_count(ARCHS["zamba2-7b"])
     with pytest.raises(NotImplementedError, match="A13"):
         registry.init(0, reduced(ARCHS["arctic-480b"]), "cpu")
 

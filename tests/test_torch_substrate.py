@@ -101,6 +101,9 @@ SLICE = ["repro_torch", "repro_torch.configs", "repro_torch.models.base",
          "repro_torch.models.layers", "repro_torch.models.transformer",
          "repro_torch.models.registry", "repro_torch.kernels.ref",
          "repro_torch.kernels.hier_agg", "repro_torch.kernels.flash_attention",
+         "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
+         "repro_torch.serving", "repro_torch.serving.engine",
+         "repro_torch.launch.serve",
          "repro_torch.kernels.ops", "repro_torch.kernels._build",
          "repro_torch.optim.adamw", "repro_torch.optim.schedules",
          "repro_torch.core.rng", "repro_torch.core.comm",

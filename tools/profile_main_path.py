@@ -32,6 +32,7 @@ sys.path.insert(0, str(ROOT))
 
 FAMILIES = [  # first match wins
     ("flash kernel (ours)", r"flash_fwd_kernel"),
+    ("SSD kernel (ours)", r"ssd_scan_kernel"),
     ("aggregation kernel (ours)", r"agg_kernel"),
     ("matmul bf16 (cuBLAS)", r"nvjet|bf16|h_bz"),
     ("matmul f32 (CUDA cores)", r"f32f32|sgemm"),
