@@ -18,11 +18,13 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("hier_agg.cu", "flash_attention.cu", "ssd_scan.cu")
+SOURCES = ("hier_agg.cu", "flash_attention.cu", "flash_attention_wgmma.cu",
+           "ssd_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # no --use_fast_math: the aggregation must divide exactly as the plain
-# version does, and the softmax and the SSD decays use the accurate expf
+# version does, the CUDA-core softmax and the SSD decays use the accurate
+# expf, and the tensor-core softmax exp2f without flushing denormals
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
@@ -91,8 +93,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                              ctypes.c_float, i32, p]
     lib.smlt_aggregate_and_apply.restype = i32
     lib.smlt_flash_attention_fwd.argtypes = [
-        p, p, p, p, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, p]
+        p, p, p, p, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, p, p]
     lib.smlt_flash_attention_fwd.restype = i32
+    lib.smlt_flash_attention_fwd_wgmma.argtypes = [
+        p, p, p, p, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, p, p]
+    lib.smlt_flash_attention_fwd_wgmma.restype = i32
+    lib.smlt_wgmma_tile.argtypes = [i32, p, p, p, i32, p]
+    lib.smlt_wgmma_tile.restype = i32
     lib.smlt_ssd_scan.argtypes = [p] * 8 + [i32] * 6 + [i64] * 4 + [i32, p]
     lib.smlt_ssd_scan.restype = i32
     return lib

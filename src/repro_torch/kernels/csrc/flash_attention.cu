@@ -1,19 +1,22 @@
-// Causal / sliding-window attention forward with an online softmax.
-// Replaces the Pallas kernel
-// src/repro/kernels/flash_attention.py::_flash_kernel.
+// Causal / sliding-window attention forward with an online softmax, in
+// f32 on the CUDA cores. Replaces the Pallas kernel
+// src/repro/kernels/flash_attention.py::_flash_kernel for f32 inputs:
+// kernels/flash_attention.py sends f32 here and bf16 to the tensor-core
+// kernel in flash_attention_wgmma.cu (on the tensor cores f32 would run as
+// TF32, which cannot hold the f32 tolerance of 2e-4 / 2e-5).
 //
 // Semantics held from the reference: q is scaled by d^-0.5 before the dot
 // products; scores and the running (m, l, acc) are f32; masked scores are
 // -1e30 (not -inf); a k-tile wholly above the causal diagonal or wholly
 // outside the window is skipped (the rule of flash_attention.py:41-46 with
-// this kernel's tile sizes); the output is acc / max(l, 1e-30), rounded
-// once to the input type. Keys at or past seq_k are masked like any other.
+// this kernel's tile sizes); the output is acc / max(l, 1e-30). Keys at or
+// past seq_k are masked like any other. q, k, v and o are read and written
+// through their (b, h, s) strides with d contiguous, so transposed
+// (b, s, h, d) views need no copy.
 //
-// What bounds it on an H100: operations. At the training shape (b*h = 32,
-// s = 2048, d = 128) a call does 4*b*h*d*s^2/2 causal FLOPs on 3 MB of bf16
-// inputs, so the least time is set by the 989 TFLOP/s bf16 tensor-core
-// rate. This first kernel runs on the CUDA cores in f32 (no wgmma, no TMA):
-// it is correct and simple, and far from that bound.
+// What bounds it on an H100: operations, 4*b*h*d*s^2/2 causal FLOPs
+// against the 67 TFLOP/s f32 rate of the CUDA cores. The f32 route serves
+// the f32 wiring checks, not the bf16 main path.
 //
 // Design: one thread block of 256 threads per (b*h, 64-query tile). The
 // scaled Q tile and each 64-key K/V tile are staged in shared memory as
@@ -22,7 +25,6 @@
 // 4x4 scores, then 4 x D/16 output accumulators; the 16 threads that share
 // a row reduce its max and sum with warp shuffles. Dynamic shared memory
 // (up to 115,200 bytes at d = 128) is enabled with cudaFuncSetAttribute.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -32,19 +34,9 @@ constexpr int BK = 64;   // keys per tile
 constexpr int NT = 256;  // threads per block: 16 x 16
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+struct Strides {  // elements; d is contiguous
+  long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
+};
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -53,11 +45,12 @@ constexpr size_t smem_bytes() {
           static_cast<size_t>(BK) * D + static_cast<size_t>(BQ) * BK);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int seq_q,
-                     int seq_k, int causal, int window, float scale) {
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     Strides st, int n_heads, int seq_q, int seq_k,
+                     int causal, int window, float scale) {
   constexpr int DP = D + 1;     // padded row stride of Qs / Ks
   constexpr int CPT = D / 16;   // output columns per thread
   extern __shared__ float smem[];
@@ -67,20 +60,21 @@ __global__ void __launch_bounds__(NT)
   float* Ps = Vs + BK * D;      // BQ x BK, probabilities of this tile
 
   const int bh = blockIdx.x;
+  const int bi = bh / n_heads, hi = bh % n_heads;
   // heaviest (last) query tiles first: causal work grows with the tile index
   const int q_start = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int tid = threadIdx.x;
   const int ty = tid / 16;      // rows ty*4 .. ty*4+3
   const int tx = tid % 16;      // columns tx + 16*j
-  const T* qb = q + static_cast<size_t>(bh) * seq_q * D;
-  const T* kb = k + static_cast<size_t>(bh) * seq_k * D;
-  const T* vb = v + static_cast<size_t>(bh) * seq_k * D;
+  const float* qb = q + bi * st.qb + hi * st.qh;
+  const float* kb = k + bi * st.kb + hi * st.kh;
+  const float* vb = v + bi * st.vb + hi * st.vh;
 
   for (int idx = tid; idx < BQ * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     const int qi = q_start + r;
     Qs[r * DP + c] =
-        qi < seq_q ? to_f32(qb[static_cast<size_t>(qi) * D + c]) * scale : 0.f;
+        qi < seq_q ? qb[qi * st.qs + c] * scale : 0.f;
   }
 
   float acc[4][CPT];
@@ -105,9 +99,8 @@ __global__ void __launch_bounds__(NT)
       const int r = idx / D, c = idx % D;
       const int ki = k_start + r;
       const bool in = ki < seq_k;
-      const size_t off = static_cast<size_t>(ki) * D + c;
-      Ks[r * DP + c] = in ? to_f32(kb[off]) : 0.f;
-      Vs[r * D + c] = in ? to_f32(vb[off]) : 0.f;
+      Ks[r * DP + c] = in ? kb[ki * st.ks + c] : 0.f;
+      Vs[r * D + c] = in ? vb[ki * st.vs + c] : 0.f;
     }
     __syncthreads();
 
@@ -185,40 +178,42 @@ __global__ void __launch_bounds__(NT)
     const int qpos = q_start + ty * 4 + i;
     if (qpos >= seq_q) continue;
     const float denom = fmaxf(l_i[i], 1e-30f);
-    T* orow = o + (static_cast<size_t>(bh) * seq_q + qpos) * D;
+    float* orow = o + bi * st.ob + hi * st.oh + qpos * st.os;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) orow[tx + 16 * c] = from_f32<T>(acc[i][c] / denom);
+    for (int c = 0; c < CPT; ++c) orow[tx + 16 * c] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int seq_q, int seq_k, int causal, int window, float scale,
-           cudaStream_t stream) {
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int b,
+           int h, int seq_q, int seq_k, int causal, int window, float scale,
+           const Strides& st, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (seq_q + BQ - 1) / BQ);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), seq_q, seq_k, causal,
-      window, scale);
+  const dim3 grid(b * h, (seq_q + BQ - 1) / BQ);
+  flash_fwd_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), st, h, seq_q, seq_k,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int bh,
-               int seq_q, int seq_k, int d, int causal, int window,
-               float scale, cudaStream_t s) {
+int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
+               int h, int seq_q, int seq_k, int d, int causal, int window,
+               float scale, const Strides& st, cudaStream_t s) {
   switch (d) {
     case 32:
-      return launch<T, 32>(q, k, v, o, bh, seq_q, seq_k, causal, window, scale, s);
+      return launch<32>(q, k, v, o, b, h, seq_q, seq_k, causal, window,
+                        scale, st, s);
     case 64:
-      return launch<T, 64>(q, k, v, o, bh, seq_q, seq_k, causal, window, scale, s);
+      return launch<64>(q, k, v, o, b, h, seq_q, seq_k, causal, window,
+                        scale, st, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, bh, seq_q, seq_k, causal, window, scale, s);
+      return launch<128>(q, k, v, o, b, h, seq_q, seq_k, causal, window,
+                         scale, st, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -226,22 +221,22 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int bh,
 
 }  // namespace
 
-// q: (bh, seq_q, d), k and v: (bh, seq_k, d), o: (bh, seq_q, d), all
-// contiguous. dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError()
-// after the launch (0 on success).
+// q: (b, h, seq_q, d), k and v: (b, h, seq_k, d), o: (b, h, seq_q, d),
+// each with d contiguous; strides: 12 element strides (b, h, s) of q, k, v
+// and o, in that order, all float32. Returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int smlt_flash_attention_fwd(const void* q, const void* k,
-                                        const void* v, void* o, int bh,
+                                        const void* v, void* o, int b, int h,
                                         int seq_q, int seq_k, int d,
                                         int causal, int window, float scale,
-                                        int dtype, void* stream) {
-  if (bh < 1 || seq_q < 1 || seq_k < 1)
+                                        const long long* strides,
+                                        void* stream) {
+  if (b < 1 || h < 1 || seq_q < 1 || seq_k < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, bh, seq_q, seq_k, d, causal, window,
-                             scale, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, bh, seq_q, seq_k, d, causal,
-                                     window, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const long long* x = strides;
+  const Strides st{x[0], x[1], x[2], x[3], x[4],  x[5],
+                   x[6], x[7], x[8], x[9], x[10], x[11]};
+  return dispatch_d(q, k, v, o, b, h, seq_q, seq_k, d, causal, window,
+                    scale, st, s);
 }

@@ -1,29 +1,44 @@
 """Causal / sliding-window attention forward with an online softmax.
 
 ``flash_attention`` replaces the Pallas kernel
-``src/repro/kernels/flash_attention.py::_flash_kernel`` with the CUDA
-kernel in ``csrc/flash_attention.cu``. On an H100 it is bound by
-operations: 4 * b * h * d * s^2 / 2 causal FLOPs against the 989 TFLOP/s
-bf16 tensor-core rate. This first kernel computes on the CUDA cores in f32
-(shared-memory K/V tiles, register-tiled scores and accumulators, only the
-k-tiles the mask leaves), so it is far from that bound; ``wgmma`` and TMA
-are for a later kernel.
+``src/repro/kernels/flash_attention.py::_flash_kernel`` with one of two CUDA
+kernels, chosen by dtype alone (``flash_route``):
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+ - bf16 -> ``"wgmma"``: ``csrc/flash_attention_wgmma.cu``, Hopper's tensor
+   cores (``wgmma``, bf16 in, f32 accumulate) fed by TMA through a
+   two-stage K/V ring;
+ - f32 -> ``"cuda_cores"``: ``csrc/flash_attention.cu``, f32 FMAs on the
+   CUDA cores. On the tensor cores f32 would run as TF32, which cannot
+   hold the f32 tolerance (2e-4 / 2e-5).
+
+On an H100 the function is bound by operations: 4 * b * h * d * s^2 / 2
+causal FLOPs against the 989 TFLOP/s bf16 tensor-core rate.
+
+Both kernels read q, k and v as strided (b, h, s, d) views with d
+contiguous (the tensor-core route also needs 16-byte aligned bases and
+strides, for TMA) and write the output in (b, s, h, d) memory order,
+returned as its (b, h, s, d) view: the model's transposed views go in and
+come out with no copy. A view the kernels cannot read raises; nothing is
+copied silently.
+
+A CPU tensor takes the plain version; a CUDA tensor launches a kernel or
 raises. ``FlashAttention`` is the differentiable form: the kernel forward
 and, as in the reference (``ops.py:48-79``), a backward that is the
 gradient of the plain blockwise attention, recomputed.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
 
 LAUNCHES = 0  # kernel launches of flash_attention (plain calls not counted)
+ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}  # the same launches by route
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128)
+WGMMA_BK = 128  # keys per tile of the tensor-core kernel (BK in its source)
 NEG_INF = -1e30
 
 
@@ -52,8 +67,49 @@ def plain_flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return torch.cat(outs, dim=2).to(q.dtype)
 
 
+def flash_route(dtype: torch.dtype, d: int) -> str:
+    """Which kernel takes (dtype, head dim d): bf16 the tensor cores
+    ("wgmma"), f32 the CUDA cores ("cuda_cores"). Raises on anything
+    else."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "cuda_cores"
+    raise TypeError(f"flash_attention takes f32 or bf16, got {dtype}")
+
+
+def kernel_strides(x: torch.Tensor, route: str) -> list[int]:
+    """The (b, h, s) element strides a kernel reads ``x`` (b, h, s, d)
+    through. d must be contiguous; the tensor-core route also needs a
+    16-byte aligned base and 16-byte multiple strides (TMA). A size-1 dim
+    never moves the address, so its stride is replaced by the tensor's
+    extent, which satisfies both. Raises on a view the kernel cannot
+    read."""
+    if x.dim() != 4:
+        raise ValueError(f"want (b, h, s, d), got shape {tuple(x.shape)}")
+    if x.stride(3) != 1 and x.shape[3] > 1:
+        raise ValueError(f"the last dim must be contiguous, got strides "
+                         f"{x.stride()}")
+    extent = 1 + sum((n - 1) * st for n, st in zip(x.shape, x.stride()))
+    extent = -(-extent // 8) * 8
+    strides = [st if n > 1 else extent
+               for n, st in zip(x.shape[:3], x.stride()[:3])]
+    if route == "wgmma":
+        nbytes = x.element_size()
+        if x.data_ptr() % 16 or any(st * nbytes % 16 for st in strides):
+            raise ValueError(
+                f"the tensor-core route reads through TMA: base "
+                f"{x.data_ptr():#x} and strides {x.stride()} (x {nbytes} "
+                "bytes) must be multiples of 16 bytes")
+    return strides
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (b, h, sq, d); k, v: (b, h, sk, d) -> (b, h, sq, d). Forward only."""
+    """q: (b, h, sq, d); k, v: (b, h, sk, d) -> (b, h, sq, d). Forward only.
+    On a CUDA tensor the result is a (b, h, sq, d) view of (b, sq, h, d)
+    memory."""
     if q.device.type == "cpu":
         return plain_flash_attention(q, k, v, causal=causal, window=window)
     b, h, sq, d = q.shape
@@ -62,22 +118,50 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}: want (b, h, s, d) with equal "
                          "b, h, d and k.shape == v.shape")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes f32 or bf16 q, k, v of one "
-                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes q, k, v of one dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    route = flash_route(q.dtype, d)
+    strides = [s for x in (q, k, v) for s in kernel_strides(x, route)]
     global LAUNCHES
     lib = _build.load()
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    out = torch.empty(b, sq, h, d, dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    strides += kernel_strides(out, "cuda_cores")
+    st = (ctypes.c_longlong * 12)(*strides)
     with torch.cuda.device(q.device):        # the launch's current device
-        err = lib.smlt_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h,
-            sq, sk, d, int(causal), int(window), d ** -0.5, _DTYPES[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "smlt_flash_attention_fwd")
+        stream = torch.cuda.current_stream().cuda_stream
+        fn = (lib.smlt_flash_attention_fwd_wgmma if route == "wgmma"
+              else lib.smlt_flash_attention_fwd)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                 h, sq, sk, d, int(causal), int(window), d ** -0.5, st,
+                 stream)
+    _build.check(err, f"flash_attention ({route})")
     LAUNCHES += 1
+    ROUTE_LAUNCHES[route] += 1
+    return out
+
+
+def wgmma_tile(a, b, which: str):
+    """One tile of the tensor-core kernel's products, for the card tests
+    (counts no launch), with n = WGMMA_BK keys: ``"qk"``: a (64, d) @
+    b (n, d)^T -> (64, n); ``"pv"``: a (64, n) @ b (n, d) -> (64, d); bf16
+    in, f32 out, both contiguous."""
+    d, n = b.shape[1], WGMMA_BK
+    want = {"qk": ((64, d), (n, d), (64, n)),
+            "pv": ((64, n), (n, d), (64, d))}[which]
+    if (tuple(a.shape), tuple(b.shape)) != want[:2] or d not in HEAD_DIMS:
+        raise ValueError(f"{which} tile wants {want[:2]}, got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError("wgmma_tile takes bf16")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty(want[2], dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = _build.load().smlt_wgmma_tile(
+            int(which == "pv"), a.data_ptr(), b.data_ptr(), out.data_ptr(), d,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, f"smlt_wgmma_tile ({which})")
     return out
 
 

@@ -20,6 +20,17 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+# ||got - want|| / ||want|| of the bf16 route against its plain version,
+# about twice what it measures (2.0e-3 to 2.3e-3, P rounded to bf16); the
+# elementwise 2e-2 alone admits an error confined to the late rows
+BF16_REL_NORM = 5e-3
+
+
+def _rel_norm_err(got, want):
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm())
+
+
 def _randn(gen, *shape, dtype=torch.float32):
     return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
@@ -42,13 +53,45 @@ def test_aggregate_kernel_on_unaligned_view(gen):
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("which", ["qk", "pv"])
+def test_wgmma_tile_products_match_matmul(gen, d, which):
+    """Each product of the tensor-core kernel alone on one tile, against
+    torch.matmul in f32: S = Q K^T (both operands K-major) and O = P V (P
+    from registers, V the MN-major B operand, the transpose bit)."""
+    n = fa.WGMMA_BK
+    if which == "qk":
+        a, b = _randn(gen, 64, d), _randn(gen, n, d)
+        want_fn = lambda a, b: a @ b.T  # noqa: E731
+    else:
+        a, b = _randn(gen, 64, n), _randn(gen, n, d)
+        want_fn = lambda a, b: a @ b  # noqa: E731
+    a, b = a.bfloat16(), b.bfloat16()
+    got = fa.wgmma_tile(a, b, which)
+    torch.cuda.synchronize()
+    want = want_fn(a.float(), b.float())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _bshd(gen, b, s, h, d, dtype):
+    """A (b, h, s, d) view of (b, s, h, d) memory, as the model hands it."""
+    return _randn(gen, b, s, h, d, dtype=dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("seq_q,seq_k,window", [(100, 100, 0), (64, 64, 16),
                                                 (257, 257, 100), (3, 70, 0)])
-def test_flash_kernel_matches_plain(gen, d, dtype, seq_q, seq_k, window):
-    q = _randn(gen, 2, 3, seq_q, d, dtype=dtype)
-    k = _randn(gen, 2, 3, seq_k, d, dtype=dtype)
-    v = _randn(gen, 2, 3, seq_k, d, dtype=dtype)
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_flash_kernel_matches_plain(gen, d, dtype, seq_q, seq_k, window,
+                                    layout):
+    if layout == "bhsd":
+        q = _randn(gen, 2, 3, seq_q, d, dtype=dtype)
+        k = _randn(gen, 2, 3, seq_k, d, dtype=dtype)
+        v = _randn(gen, 2, 3, seq_k, d, dtype=dtype)
+    else:
+        q = _bshd(gen, 2, seq_q, 3, d, dtype)
+        k = _bshd(gen, 2, seq_k, 3, d, dtype)
+        v = _bshd(gen, 2, seq_k, 3, d, dtype)
     for causal in (True, False):
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         want = fa.plain_flash_attention(q, k, v, causal=causal,
@@ -56,6 +99,71 @@ def test_flash_kernel_matches_plain(gen, d, dtype, seq_q, seq_k, window):
         tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 \
             else dict(rtol=2e-4, atol=2e-5)
         torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "cuda_cores")])
+def test_flash_route_launch_counts(gen, dtype, route):
+    q = _bshd(gen, 1, 256, 2, 128, dtype)
+    before, by_route = fa.LAUNCHES, dict(fa.ROUTE_LAUNCHES)
+    out = fa.flash_attention(q, q, q)
+    assert fa.LAUNCHES == before + 1
+    assert fa.ROUTE_LAUNCHES[route] == by_route[route] + 1
+    other = ({"wgmma", "cuda_cores"} - {route}).pop()
+    assert fa.ROUTE_LAUNCHES[other] == by_route[other]
+    # written in (b, s, h, d) memory: the model's transpose back is free
+    assert out.shape == q.shape and out.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_strided_and_contiguous_bit_equal(gen, dtype, d):
+    q, k, v = [_bshd(gen, 2, 300, 4, d, dtype) for _ in range(3)]
+    for causal, window in ((True, 0), (True, 64), (False, 0)):
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal,
+                                  window=window)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("window", [16, 64, 100])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_windows_match_plain(gen, window, causal):
+    q, k, v = [_bshd(gen, 2, 384, 4, 128, torch.bfloat16) for _ in range(3)]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.plain_flash_attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert _rel_norm_err(got, want) < BF16_REL_NORM
+
+
+def test_flash_main_shape_strided_matches_plain(gen):
+    """olmo-1b's training shape, (2, 16, 2048, 128) bf16 causal, on the
+    model's transposed views."""
+    q, k, v = [_bshd(gen, 2, 2048, 16, 128, torch.bfloat16)
+               for _ in range(3)]
+    got = fa.flash_attention(q, k, v)
+    want = fa.plain_flash_attention(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert _rel_norm_err(got, want) < BF16_REL_NORM
+
+
+def test_flash_refuses_views_it_cannot_read(gen):
+    x = _randn(gen, 1, 2, 64, 64, dtype=torch.bfloat16)
+    before = fa.LAUNCHES
+    with pytest.raises(ValueError, match="last dim"):
+        fa.flash_attention(x.transpose(2, 3), x, x)
+    # rows of 36 bf16 (72 bytes): no TMA stride, but the CUDA cores read it
+    y = _randn(gen, 1, 2, 64, 36, dtype=torch.bfloat16)[..., :32]
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa.flash_attention(y, y, y)
+    assert fa.LAUNCHES == before
+    yf = _randn(gen, 1, 2, 64, 36)[..., :32]     # f32 rows with a gap
+    torch.testing.assert_close(fa.flash_attention(yf, yf, yf),
+                               fa.plain_flash_attention(yf, yf, yf),
+                               rtol=2e-4, atol=2e-5)
 
 
 def test_flash_grads_on_card_match_plain(gen):

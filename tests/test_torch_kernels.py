@@ -165,6 +165,118 @@ def test_flash_noncausal_padded_kv_raises():
         ops.flash_attention(q, q, q, causal=False, block_q=16, block_k=16)
 
 
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "cuda_cores")])
+def test_flash_route_by_dtype(d, dtype, route):
+    """bf16 goes to the tensor cores, f32 to the CUDA cores (TF32 could not
+    hold the f32 tolerance), whatever the head dim."""
+    assert fa.flash_route(dtype, d) == route
+
+
+def test_flash_route_refuses_other_dtypes_and_dims():
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        fa.flash_route(torch.float16, 64)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_route(torch.bfloat16, 48)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_strides_take_the_models_views(d, dtype):
+    """The model's q.transpose(1, 2) of (b, s, h, d) memory is read in
+    place: the kernel gets its (b, h, s) strides."""
+    b, s, h = 2, 48, 3
+    x = torch.empty(b, s, h, d, dtype=dtype, device="meta").transpose(1, 2)
+    route = fa.flash_route(dtype, d)
+    assert fa.kernel_strides(x, route) == [s * h * d, d, h * d]
+
+
+@pytest.mark.parametrize("route", ["wgmma", "cuda_cores"])
+def test_kernel_strides_refuse_a_strided_last_dim(route):
+    x = torch.empty(1, 2, 64, 32, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="last dim"):
+        fa.kernel_strides(x.transpose(2, 3), route)
+
+
+def test_kernel_strides_tma_alignment():
+    """Rows of 36 bf16 are 72 bytes: TMA cannot stride them, the CUDA cores
+    can. A size-1 dim's stride never counts."""
+    x = torch.empty(1, 2, 64, 36, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa.kernel_strides(x[..., :32], "wgmma")
+    assert fa.kernel_strides(x[..., :32], "cuda_cores") == [
+        2 * 64 * 36, 64 * 36, 36]
+    one = torch.empty(1, 1, 5, 32, dtype=torch.bfloat16, device="meta")
+    assert all(st % 8 == 0 for st in fa.kernel_strides(one, "wgmma"))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("window", [0, 24])
+def test_flash_on_transposed_views_matches_reference(dtype, window):
+    """ops.flash_attention on (b, s, h, d) memory seen as (b, h, s, d)
+    views, as the model calls it, against the reference on the same
+    numpy inputs."""
+    b, s, h, d = 2, 128, 3, 64
+    pairs = [_pair(RNG.randn(b, s, h, d), dtype) for _ in range(3)]
+    jq, jk, jv = [jnp.transpose(j, (0, 2, 1, 3)) for j, _ in pairs]
+    tq, tk, tv = [t.transpose(1, 2) for _, t in pairs]
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window,
+                              block_q=64, block_k=64)
+    want = jops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                block_q=64, block_k=64)
+    assert got.shape == (b, h, s, d)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+
+
+class _FakeLib:
+    """Records the kernel calls the wrapper makes (no card here)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def smlt_flash_attention_fwd_wgmma(self, q, k, v, o, b, h, sq, sk, d,
+                                       causal, window, scale, st, stream):
+        self.calls.append(("wgmma", (b, h, sq, sk, d), list(st)))
+        return 0
+
+    def smlt_flash_attention_fwd(self, q, k, v, o, b, h, sq, sk, d, causal,
+                                 window, scale, st, stream):
+        self.calls.append(("cuda_cores", (b, h, sq, sk, d), list(st)))
+        return 0
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "cuda_cores")])
+def test_flash_wrapper_hands_the_kernel_the_views(monkeypatch, dtype, route):
+    """On a non-CPU tensor (meta stands in for CUDA) the wrapper calls the
+    route's kernel with the views' own strides, counts one launch on
+    LAUNCHES and on its route, and returns a (b, h, s, d) view of
+    (b, s, h, d) memory."""
+    lib = _FakeLib()
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: _NullContext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    b, s, h, d = 2, 64, 4, 32
+    q, k, v = [torch.empty(b, s, h, d, dtype=dtype, device="meta")
+               .transpose(1, 2) for _ in range(3)]
+    before, by_route = fa.LAUNCHES, dict(fa.ROUTE_LAUNCHES)
+    out = fa.flash_attention(q, k, v)
+    assert lib.calls == [(route, (b, h, s, s, d), [s * h * d, d, h * d] * 4)]
+    assert fa.LAUNCHES == before + 1
+    assert fa.ROUTE_LAUNCHES[route] == by_route[route] + 1
+    assert out.shape == (b, h, s, d) and out.transpose(1, 2).is_contiguous()
+
+
+class _NullContext:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
 # ---------------------------------------------------------------------------
 # SSD chunked scan
 # ---------------------------------------------------------------------------
@@ -275,7 +387,7 @@ def test_non_cpu_tensor_never_takes_plain_path(monkeypatch, call):
 
 def _launches():
     return (hier_agg.LAUNCHES, hier_agg.APPLY_LAUNCHES, fa.LAUNCHES,
-            ssd.LAUNCHES)
+            dict(fa.ROUTE_LAUNCHES), ssd.LAUNCHES)
 
 
 def test_cpu_calls_count_no_launch():

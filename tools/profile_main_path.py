@@ -31,7 +31,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 FAMILIES = [  # first match wins
-    ("flash kernel (ours)", r"flash_fwd_kernel"),
+    ("flash kernel (ours)", r"flash_fwd"),    # either route's kernel
     ("SSD kernel (ours)", r"ssd_scan_kernel"),
     ("aggregation kernel (ours)", r"agg_kernel"),
     ("matmul bf16 (cuBLAS)", r"nvjet|bf16|h_bz"),
