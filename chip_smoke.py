@@ -30,22 +30,32 @@ non-zero before the result lines:
      the flash kernel on the model's views, with its achieved TFLOP/s and
      its share of the bound; the aggregation beside a plain device copy;
   7. the SSD scan and aggregate_and_apply against their plain versions on
-     the card: the reference's sweeps (SSD f32 2e-4 on y and the state,
-     bf16 5e-2 on y and 1e-2 on the state; apply rtol 1e-5 / atol 1e-6),
-     the SSD at mamba2-2.7b's scoring shape with the model's dtypes, and
+     the card: the reference's sweeps on whichever route each case takes
+     (SSD f32 2e-4 on y and the state, bf16 5e-2 on y and 1e-2 on the
+     state; apply rtol 1e-5 / atol 1e-6); a bf16 sweep on the tensor-core
+     route (one case padded); slow-decay cases that carry the state across
+     chunks, on both routes; the scoring shape of mamba2-2.7b with the
+     model's dtypes and B / C views, on both routes; the tensor-core
+     route's y also within a relative norm error (SSD_BF16_REL_NORM); and
      aggregate_and_apply at olmo-1b's shard length;
-  8. SSM wiring at full width, depth 2, f32: the loss with the SSD kernel
-     equals the loss without it (rtol 1e-4); on the last position's logits,
-     prefill (plain chunked SSD) equals the kernel forward (rtol 1e-4 /
-     atol 1e-4), and decode after prefill (the per-token recurrence)
-     equals prefill at the reference's sequential-vs-chunked SSD tolerance
-     (rtol 3e-4 / atol 3e-4, tests/test_models_ref.py:49-52);
+  8. SSM wiring at full width, depth 2: in f32, the loss with the SSD
+     kernel equals the loss without it (rtol 1e-4); on the last position's
+     logits, prefill (plain chunked SSD) equals the kernel forward (rtol
+     1e-4 / atol 1e-4), and decode after prefill (the per-token
+     recurrence) equals prefill at the reference's sequential-vs-chunked
+     SSD tolerance (rtol 3e-4 / atol 3e-4, tests/test_models_ref.py:49-52);
+     in bf16 (the tensor-core route), the loss and the last position's
+     logits with the kernel against the plain ssd_chunked path
+     (SSM_BF16_LOSS_RTOL, SSM_BF16_LOGITS_REL_NORM);
   9. the second slice, full-width mamba2-2.7b in bf16 (64 layers, random
      weights from seed 0): scoring, 3 evaluations of registry.loss_fn
-     through the SSD kernel on 8 x 2048 tokens (exactly 64 x 3 launches),
-     then serving, ServingEngine.serve_batch on 4 prompts of 2048 tokens
-     with 32 new tokens each;
- 10. timing of the SSD scan and aggregate_and_apply as in phase 6.
+     through the SSD kernel on 8 x 2048 tokens (exactly 64 x 3 launches,
+     all on the tensor-core route), then serving,
+     ServingEngine.serve_batch on 4 prompts of 2048 tokens with 32 new
+     tokens each;
+ 10. timing of the SSD scan (both routes at the scoring shape, each with
+     its achieved TFLOP/s on its own FLOP count and its share of the
+     bound) and aggregate_and_apply as in phase 6.
 
 The second-to-last line is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero without.
@@ -78,6 +88,17 @@ LR = 0.05
 # is rounded to bf16 for P V); the elementwise 2e-2 alone admits an error
 # confined to the late rows, where outputs are a few 1e-2
 FLASH_BF16_REL_NORM = 5e-3
+# ||y - y_plain|| / ||y_plain|| of the tensor-core SSD route, about twice
+# what its split-bf16 arithmetic gives, emulated at the scoring widths
+# (tests/test_torch_ssd_numerics.py: 5.2e-5 to 1.04e-4)
+SSD_BF16_REL_NORM = 2.5e-4
+# the depth-2 bf16 SSM wiring check (phase 8): the kernel path and the
+# plain ssd_chunked path differ by the kernel's split-bf16 products and y's
+# rounding (relative norm ~1e-4 per layer), which the bf16 layers after it
+# round again: the loss is a mean over 16,384 tokens, held to rtol 1e-3;
+# the last position's logits to a relative norm error of 1e-2
+SSM_BF16_LOSS_RTOL = 1e-3
+SSM_BF16_LOGITS_REL_NORM = 1e-2
 
 
 def log(*a):
@@ -432,17 +453,29 @@ def check_agg_apply(device, main_len: int, gen) -> float:
 
 
 def ssd_inputs(gen, device, b, s, h, p, n, dtype, dt_dtype=None,
-               d_dtype=None):
+               d_dtype=None, slow_decay=False, bc_views=False):
     """tests/test_kernels.py's distribution: x, B, C ~ N(0, 1);
-    dt = |N| * 0.5 + 0.01; A = -(|N| + 0.5); D ~ N(0, 1)."""
+    dt = |N| * 0.5 + 0.01; A = -(|N| + 0.5); D ~ N(0, 1). slow_decay:
+    Mamba2's initial ranges instead, dt log-uniform in [1e-3, 1e-1] and
+    A = -U[1, 16], so the state lives across chunks. bc_views: B and C
+    the two halves of one (b, s, 2n) tensor, as the model splits them."""
     import torch
 
     def rn(*shape):
         return torch.randn(*shape, generator=gen, device=device)
     x = rn(b, s, h, p).to(dtype)
-    dt = (rn(b, s, h).abs() * 0.5 + 0.01).to(dt_dtype or dtype)
-    A = -(rn(h).abs() + 0.5)
-    B, C = rn(b, s, n).to(dtype), rn(b, s, n).to(dtype)
+    if slow_decay:
+        u = torch.rand(b, s, h, generator=gen, device=device)
+        dt = torch.exp(math.log(1e-3) + u * math.log(100.0))
+        A = -(1.0 + 15.0 * torch.rand(h, generator=gen, device=device))
+    else:
+        dt = rn(b, s, h).abs() * 0.5 + 0.01
+        A = -(rn(h).abs() + 0.5)
+    dt = dt.to(dt_dtype or dtype)
+    if bc_views:
+        B, C = torch.split(rn(b, s, 2 * n).to(dtype), n, dim=-1)
+    else:
+        B, C = rn(b, s, n).to(dtype), rn(b, s, n).to(dtype)
     D = rn(h).to(d_dtype or torch.float32)
     return x, dt, A, B, C, D
 
@@ -454,39 +487,85 @@ def ssd_tol(dtype):
     return (2e-4, 2e-4), (2e-4, 2e-4)
 
 
-def check_ssd(device, shape, gen) -> float:
+def check_ssd(device, shape, gen):
+    """Returns the max abs error of y of the tensor-core route at the
+    scoring shape."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ssd
+    routes = dict(ssd.ROUTE_LAUNCHES)
+    want_routes = {"wgmma": 0, "cuda_cores": 0}
+    rels = []                        # relative norm errors, wgmma route
+
+    def held(got, want, dtype, what, route):
+        (y, S), (wy, wS) = got, want
+        (yr, ya), (sr, sa) = ssd_tol(dtype)
+        err = require_close(y, wy, yr, ya, f"ssd y {what}")
+        require_close(S, wS, sr, sa, f"ssd state {what}")
+        want_routes[route] += 1
+        if route == "wgmma":
+            rels.append(rel_norm_err(y, wy))
+            require(rels[-1] < SSD_BF16_REL_NORM, f"ssd y {what}: relative "
+                    f"norm error {rels[-1]:.3e} >= {SSD_BF16_REL_NORM}")
+        return err
+
+    def padded_plain(args, s, chunk):
+        c = min(chunk, max(16, s))
+        pad = (-s) % c
+        padded = [torch.nn.functional.pad(
+            a, [0, 0] * (a.dim() - 2) + [0, pad]) if a.dim() > 1 else a
+            for a in args]
+        wy, wS = ssd.plain_ssd_scan(*padded, c)
+        return (wy[:, :s], wS), ssd.ssd_route(args[0].dtype, args[0].shape[3],
+                                               args[3].shape[2], c)
+
     cases = 0
     for s, chunk in ((64, 16), (100, 32), (256, 64)):
         for dtype in (torch.float32, torch.bfloat16):
             args = ssd_inputs(gen, device, 2, s, 4, 16, 8, dtype)
-            y, S = ops.ssd_scan(*args, chunk=chunk)
-            c = min(chunk, max(16, s))
-            pad = (-s) % c
-            padded = [torch.nn.functional.pad(
-                a, [0, 0] * (a.dim() - 2) + [0, pad]) if a.dim() > 1 else a
-                for a in args]
-            wy, wS = ssd.plain_ssd_scan(*padded, c)
-            (yr, ya), (sr, sa) = ssd_tol(dtype)
-            require_close(y, wy[:, :s], yr, ya, f"ssd y s={s} chunk={chunk} "
-                          f"{dtype}")
-            require_close(S, wS, sr, sa, f"ssd state s={s} chunk={chunk} "
-                          f"{dtype}")
+            want, route = padded_plain(args, s, chunk)
+            held(ops.ssd_scan(*args, chunk=chunk), want, dtype,
+                 f"s={s} chunk={chunk} {dtype}", route)
             cases += 1
     b, s, h, p, n, chunk = shape
+    for s_, chunk_ in ((256, 64), (320, 64), (300, 64), (2048, 256),
+                       (300, 256)):            # 300 pads to 320 and to 512
+        args = ssd_inputs(gen, device, 2, s_, 4, p, n, torch.bfloat16,
+                          dt_dtype=torch.float32, bc_views=True)
+        want, route = padded_plain(args, s_, chunk_)
+        require(route == "wgmma", f"s={s_} chunk={chunk_} routes to {route}")
+        held(ops.ssd_scan(*args, chunk=chunk_), want, torch.bfloat16,
+             f"bf16 s={s_} chunk={chunk_} p={p} n={n}", route)
+        cases += 1
+    for route in ("wgmma", "cuda_cores"):
+        args = ssd_inputs(gen, device, 2, 4 * chunk, 4, p, n, torch.bfloat16,
+                          dt_dtype=torch.float32, slow_decay=True,
+                          bc_views=True)
+        want = ssd.plain_ssd_scan(*args, chunk)
+        require(float(want[1].abs().max()) > 0.1, "slow-decay state ~0")
+        held(ssd.ssd_scan(*args, chunk=chunk, route=route), want,
+             torch.bfloat16, f"slow decay s={4 * chunk} on {route}", route)
+        cases += 1
     args = ssd_inputs(gen, device, b, s, h, p, n, torch.bfloat16,
-                      dt_dtype=torch.float32, d_dtype=torch.bfloat16)
-    y, S = ssd.ssd_scan(*args, chunk=chunk)
-    wy, wS = ssd.plain_ssd_scan(*args, chunk)
-    (yr, ya), (sr, sa) = ssd_tol(torch.bfloat16)
-    err = require_close(y, wy, yr, ya, f"ssd y scoring shape {shape}")
-    serr = require_close(S, wS, sr, sa, f"ssd state scoring shape {shape}")
-    log(f"  ssd_scan: {cases} sweep cases within tolerance; scoring shape "
-        f"(b, s, h, p, n, chunk) = {shape}, x/B/C bf16, dt/A f32, D bf16: "
-        f"max abs err y {err:.3e}, state {serr:.3e}")
-    return err
+                      dt_dtype=torch.float32, d_dtype=torch.bfloat16,
+                      bc_views=True)
+    want = ssd.plain_ssd_scan(*args, chunk)
+    errs = {}
+    for route in ("cuda_cores", "wgmma"):
+        errs[route] = held(ssd.ssd_scan(*args, chunk=chunk, route=route),
+                           want, torch.bfloat16,
+                           f"scoring shape {shape} on {route}", route)
+        cases += 1
+    new = {r: k - routes[r] for r, k in ssd.ROUTE_LAUNCHES.items()}
+    if device.type == "cuda":              # a CPU rehearsal launches nothing
+        require(new == want_routes, f"ssd routes {new} != {want_routes}")
+    log(f"  ssd_scan: {cases} cases within tolerance (routes {new}); "
+        f"scoring shape (b, s, h, p, n, chunk) = {shape}, x/B/C bf16 (B, C "
+        f"views of one (b, s, 2n) tensor), dt/A f32, D bf16: max abs err y "
+        f"wgmma {errs['wgmma']:.3e}, cuda_cores {errs['cuda_cores']:.3e}; "
+        f"wgmma relative norm errors {', '.join(f'{r:.3e}' for r in rels)} "
+        f"(limit {SSD_BF16_REL_NORM}; the last is the scoring shape)")
+    return errs["wgmma"]
 
 
 # ---------------------------------------------------------------------------
@@ -522,6 +601,39 @@ def check_ssm_wiring(cfg, device, batch_size: int, seq: int):
     require_close(dec, full, 3e-4, 3e-4, "decode vs prefill")
 
 
+def check_ssm_wiring_bf16(cfg, device, batch_size: int, seq: int):
+    """bf16, where the kernel takes the tensor-core route: the loss and the
+    last position's logits with the kernel against the plain ssd_chunked
+    path."""
+    import torch
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import mamba2, registry
+    params = registry.init(0, cfg, device)
+    batch = T.from_numpy(make_loader(cfg, seq).next_batch(batch_size), device)
+    on = cfg.replace(use_ssd_kernel=True)
+    routes = dict(ssd.ROUTE_LAUNCHES)
+    with torch.no_grad():
+        l0 = float(registry.loss_fn(params, cfg, batch))
+        l1 = float(registry.loss_fn(params, on, batch))
+        plain = mamba2.forward(params, cfg, batch["tokens"])[0][:, -1]
+        kern = mamba2.forward(params, on, batch["tokens"])[0][:, -1]
+    new = ssd.ROUTE_LAUNCHES["wgmma"] - routes["wgmma"]
+    rel = rel_norm_err(kern, plain)
+    log(f"  ssm wiring (d_model {cfg.d_model}, {cfg.n_layers} layers, bf16, "
+        f"{batch_size} x {seq}): loss off {l0!r} on {l1!r} (rel "
+        f"{abs(l1 - l0) / abs(l0):.3e}); last-position logits relative norm "
+        f"err {rel:.3e}, max abs err {max_err(kern, plain):.3e}; {new} "
+        "tensor-core launches")
+    require(device.type == "cpu" or new == 2 * cfg.n_layers,
+            f"{new} wgmma launches, want {2 * cfg.n_layers}")
+    require(math.isfinite(l0) and abs(l1 - l0) <= SSM_BF16_LOSS_RTOL
+            * abs(l0), f"bf16 ssm wiring loss: kernel {l1!r} vs plain {l0!r} "
+            f"(rtol {SSM_BF16_LOSS_RTOL})")
+    require(rel < SSM_BF16_LOGITS_REL_NORM, f"bf16 ssm wiring logits: "
+            f"relative norm error {rel:.3e} >= {SSM_BF16_LOGITS_REL_NORM}")
+
+
 def kernel_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hier_agg
@@ -537,8 +649,9 @@ def zero_counts():
     from repro_torch.kernels import ssd_scan as ssd
     hier_agg.LAUNCHES = hier_agg.APPLY_LAUNCHES = 0
     fa.LAUNCHES = ssd.LAUNCHES = 0
-    for route in fa.ROUTE_LAUNCHES:
-        fa.ROUTE_LAUNCHES[route] = 0
+    for routes in (fa.ROUTE_LAUNCHES, ssd.ROUTE_LAUNCHES):
+        for route in routes:
+            routes[route] = 0
 
 
 def run_scoring(cfg, params, device, batch_size: int, seq: int, evals: int):
@@ -602,22 +715,46 @@ def time_slice_kernels(device, main_len: int, shape, gen):
     out = {}
     b, s, h, p, n, chunk = shape
     args = ssd_inputs(gen, device, b, s, h, p, n, torch.bfloat16,
-                      dt_dtype=torch.float32, d_dtype=torch.bfloat16)
-    # the pairs the causal mask leaves (C B^T and scores @ x dt), plus
-    # C @ S and the state update, for each (b*h, chunk)
-    flops = b * h * (s // chunk) * (
-        (n + p) * chunk * (chunk + 1) + 4 * chunk * n * p)
+                      dt_dtype=torch.float32, d_dtype=torch.bfloat16,
+                      bc_views=True)
+    nc, q = s // chunk, chunk
+    # the least work: C B^T once per (batch, chunk) on the pairs the causal
+    # mask leaves, then for each (batch, head, chunk) scores @ (x dt) on
+    # those pairs, C @ S and the state update
+    flops = b * nc * n * q * (q + 1) + b * h * nc * (
+        p * q * (q + 1) + 4 * q * n * p)
+    # each kernel's own count. The tensor-core kernel: n padded to 128 and
+    # p to 64, whole 64 x 64 tiles on and below the diagonal, C B^T for
+    # each head, and P, S^ and the decayed B^T as two bf16 products each.
+    # PR 12's kernel: C B^T for each head and scores @ (x dt) on the causal
+    # pairs, C @ S and the state update
+    tiles, npad, ppad = q // 64, 128, 64
+    own = {"wgmma": b * h * nc * (
+        tiles * (tiles + 1) // 2 * (2 * 64 * 64 * npad + 2 * 2 * 64 * 64 * ppad)
+        + tiles * 2 * 2 * 64 * npad * ppad + tiles * 2 * 2 * npad * 64 * ppad),
+        "cuda_cores": b * h * nc * ((n + p) * q * (q + 1) + 4 * q * n * p)}
     io = sum(a.numel() * a.element_size() for a in args)       # inputs once
     io += args[0].numel() * args[0].element_size() + b * h * n * p * 4
+    bound_ms = max(flops / BF16_FLOPS_PER_S, io / HBM_BYTES_PER_S) * 1e3
+    log(f"  ssd_scan bound inputs: {flops} FLOPs (least work), {io} bytes; "
+        f"the kernels' own counts: {own}")
+    routes = {}
+    for route in ("wgmma", "cuda_cores", "wgmma", "cuda_cores"):
+        t = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk, route=route))
+        routes.setdefault(route, []).append(t)
+    for route, ts in routes.items():
+        log(f"  ssd_scan {route} at {shape} bf16 on the model's views: "
+            f"{' / '.join(f'{t:.4f}' for t in ts)} ms back to back; "
+            f"{own[route] / min(ts) / 1e9:.1f} TFLOP/s on its own count, "
+            f"{bound_ms / min(ts):.4f} of the bound")
     out["ssd_scan"] = dict(
-        ms=time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk)),
+        ms=routes["wgmma"][0],
         call_ms=call_ms(lambda: ssd.ssd_scan(*args, chunk=chunk)),
         plain_ms=time_ms(lambda: ssd.plain_ssd_scan(*args, chunk)),
-        library_ms=None,
-        bound_ms=max(flops / BF16_FLOPS_PER_S, io / HBM_BYTES_PER_S) * 1e3,
+        library_ms=None, bound_ms=bound_ms,
         bound_by="operations" if flops / BF16_FLOPS_PER_S
         >= io / HBM_BYTES_PER_S else "bytes")
-    log(f"  ssd_scan bound inputs: {flops} FLOPs, {io} bytes")
+    out["ssd_scan_cuda_cores_ms"] = routes["cuda_cores"][0]
     del args
     x = torch.randn(N_WORKERS, main_len, generator=gen, device=device)
     p = torch.randn(main_len, generator=gen, device=device)
@@ -718,9 +855,11 @@ def main() -> int:
     apply_err = check_agg_apply(device, flat_len, gen)
     torch.cuda.empty_cache()
 
-    log("[8] SSM wiring at full width, depth 2, f32")
+    log("[8] SSM wiring at full width, depth 2, f32 and bf16")
     check_ssm_wiring(ssm.replace(n_layers=2, dtype=torch.float32), device,
                      GLOBAL_BATCH, SEQ)
+    torch.cuda.empty_cache()
+    check_ssm_wiring_bf16(ssm.replace(n_layers=2), device, GLOBAL_BATCH, SEQ)
     torch.cuda.empty_cache()
 
     scfg = ssm.replace(use_ssd_kernel=True)
@@ -744,6 +883,11 @@ def main() -> int:
     log(f"  scoring launches {score_launches}, expected {want}")
     require(score_launches == want,
             f"scoring launch counts {score_launches} != {want}")
+    from repro_torch.kernels import ssd_scan as ssd
+    ssd_routes = dict(ssd.ROUTE_LAUNCHES)
+    log(f"  scoring SSD launches by route {ssd_routes}")
+    require(ssd_routes == {"wgmma": want["ssd_scan"], "cuda_cores": 0},
+            f"bf16 scoring's SSD routes {ssd_routes}: want all on wgmma")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     out, stats, serve_launches = run_serving(scfg, params, device,
@@ -767,6 +911,8 @@ def main() -> int:
     times.update(time_slice_kernels(device, flat_len, ssd_shape, gen))
     for name in ("ssd_scan", "aggregate_and_apply"):
         log(f"  {name}: {times[name]}")
+    log(f"  ssd_scan, PR 12's CUDA-core kernel in the same process: "
+        f"{times.pop('ssd_scan_cuda_cores_ms'):.4f} ms back to back")
 
     kernels = [
         dict(name="aggregate_shards", route="cuda",
@@ -788,7 +934,9 @@ def main() -> int:
                        + serve_launches["aggregate_and_apply"]),
              max_abs_err=apply_err, **times["aggregate_and_apply"]),
         dict(name="ssd_scan", route="cuda",
-             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+             variant=ssd.ssd_route(torch.bfloat16, ssd_shape[3],
+                                   ssd_shape[4], ssd_shape[5]),
+             source="src/repro_torch/kernels/csrc/ssd_scan_wgmma.cu",
              replaces="src/repro/kernels/ssd_scan.py:25",
              launches=score_launches["ssd_scan"], max_abs_err=ssd_err,
              **times["ssd_scan"]),

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-Each ``csrc/*.cu`` file has a plain C interface. ``load()`` compiles them
+Each ``csrc/*.cu`` file has a plain C interface; ``csrc/hopper.cuh`` holds
+the Hopper pieces the two tensor-core kernels share. ``load()`` compiles them
 with ``nvcc`` for ``sm_90a`` (one process per source, all started
 together), links them into one shared library under ``build/`` at the repo
 root, and opens it with ``ctypes``. The library is named by a hash of the
-sources and flags, so an edited source builds anew and an unchanged one is
-reused. Nothing here runs at import time.
+sources, the headers they include and the flags, so an edit builds anew
+and an unchanged source set is reused. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("hier_agg.cu", "flash_attention.cu", "flash_attention_wgmma.cu",
-           "ssd_scan.cu")
+           "ssd_scan.cu", "ssd_scan_wgmma.cu")
+HEADERS = ("hopper.cuh",)  # included by the sources: part of the hash
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # no --use_fast_math: the aggregation must divide exactly as the plain
@@ -41,15 +43,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def library_path() -> Path:
+    """Where the library of this source set (sources, headers, flags)
+    lives: an edit to any of them names another library."""
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for s in SOURCES + HEADERS:
+        h.update(s.encode())
+        h.update((CSRC / s).read_bytes())
+    return BUILD_DIR / f"libsmlt_kernels_{h.hexdigest()[:16]}.so"
+
+
 def build() -> Path:
     """Compile and link the kernels if this source set has no library yet;
     returns the library's path."""
     srcs = [CSRC / s for s in SOURCES]
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    for s in srcs:
-        h.update(s.name.encode())
-        h.update(s.read_bytes())
-    lib = BUILD_DIR / f"libsmlt_kernels_{h.hexdigest()[:16]}.so"
+    lib = library_path()
     if lib.exists():
         _build_info.update(path=str(lib), seconds=0.0, log="(cached)")
         return lib
@@ -102,6 +110,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.smlt_wgmma_tile.restype = i32
     lib.smlt_ssd_scan.argtypes = [p] * 8 + [i32] * 6 + [i64] * 4 + [i32, p]
     lib.smlt_ssd_scan.restype = i32
+    lib.smlt_ssd_scan_wgmma.argtypes = [p] * 8 + [i32] * 6 + [p, p]
+    lib.smlt_ssd_scan_wgmma.restype = i32
+    lib.smlt_ssd_wgmma_tile.argtypes = [i32] + [p] * 6
+    lib.smlt_ssd_wgmma_tile.restype = i32
     return lib
 
 

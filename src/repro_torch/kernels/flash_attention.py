@@ -81,21 +81,21 @@ def flash_route(dtype: torch.dtype, d: int) -> str:
 
 
 def kernel_strides(x: torch.Tensor, route: str) -> list[int]:
-    """The (b, h, s) element strides a kernel reads ``x`` (b, h, s, d)
-    through. d must be contiguous; the tensor-core route also needs a
-    16-byte aligned base and 16-byte multiple strides (TMA). A size-1 dim
-    never moves the address, so its stride is replaced by the tensor's
-    extent, which satisfies both. Raises on a view the kernel cannot
+    """The element strides of every dim but the last through which a
+    kernel reads ``x``: (b, h, s) of flash's (b, h, s, d), (b, s, h) of the
+    SSD scan's x and (b, s) of its B and C. The last dim must be
+    contiguous; a tensor-core ("wgmma") route also needs a 16-byte aligned
+    base and 16-byte multiple strides (TMA). A size-1 dim never moves the
+    address, so its stride is replaced by the tensor's extent rounded up
+    to 8, which satisfies both. Raises on a view the kernel cannot
     read."""
-    if x.dim() != 4:
-        raise ValueError(f"want (b, h, s, d), got shape {tuple(x.shape)}")
-    if x.stride(3) != 1 and x.shape[3] > 1:
+    if x.stride(-1) != 1 and x.shape[-1] > 1:
         raise ValueError(f"the last dim must be contiguous, got strides "
                          f"{x.stride()}")
     extent = 1 + sum((n - 1) * st for n, st in zip(x.shape, x.stride()))
     extent = -(-extent // 8) * 8
     strides = [st if n > 1 else extent
-               for n, st in zip(x.shape[:3], x.stride()[:3])]
+               for n, st in zip(x.shape[:-1], x.stride()[:-1])]
     if route == "wgmma":
         nbytes = x.element_size()
         if x.data_ptr() % 16 or any(st * nbytes % 16 for st in strides):

@@ -2,6 +2,8 @@
 its plain version on the card, counts its launches, and refuses what it
 does not take. Marked ``cuda``; they skip on a machine without a card and
 run there with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -24,6 +26,9 @@ def gen():
 # about twice what it measures (2.0e-3 to 2.3e-3, P rounded to bf16); the
 # elementwise 2e-2 alone admits an error confined to the late rows
 BF16_REL_NORM = 5e-3
+# the same for the tensor-core SSD route's y, about twice what its split-
+# bf16 arithmetic gives, emulated (tests/test_torch_ssd_numerics.py)
+SSD_BF16_REL_NORM = 2.5e-4
 
 
 def _rel_norm_err(got, want):
@@ -262,3 +267,132 @@ def test_ssd_kernel_refuses_requires_grad(gen):
     with pytest.raises(RuntimeError, match="no backward"):
         ssd.ssd_scan(x.requires_grad_(True), dt, A, B, C, D, chunk=32)
     assert ssd.LAUNCHES == before
+
+
+def _ssd_slow_args(gen, b, s, h, p, n, dtype):
+    """Mamba2's initial ranges: dt log-uniform in [1e-3, 1e-1], A = -U[1, 16],
+    so the state carried across chunks stays of size ~1."""
+    x = _randn(gen, b, s, h, p, dtype=dtype)
+    u = torch.rand(b, s, h, generator=gen, device="cuda")
+    dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+    A = -(1.0 + 15.0 * torch.rand(h, generator=gen, device="cuda"))
+    B, C = _randn(gen, b, s, n, dtype=dtype), _randn(gen, b, s, n, dtype=dtype)
+    return x, dt, A, B, C, _randn(gen, h)
+
+
+def _check_ssd(got, want, dtype, rel_norm=None):
+    (y, S), (wy, wS) = got, want
+    ytol = dict(rtol=5e-2, atol=5e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=2e-4, atol=2e-4)
+    stol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(y.float(), wy.float(), **ytol)
+    torch.testing.assert_close(S, wS, **stol)
+    if rel_norm is not None:
+        assert _rel_norm_err(y, wy) < rel_norm
+
+
+@pytest.mark.parametrize("which", ["cb", "px", "cs", "bx"])
+def test_ssd_wgmma_tile_products_match_matmul(gen, which):
+    """Each product of the tensor-core SSD kernel alone on one tile, by the
+    kernel's own device code, against torch.matmul in f32: C B^T (both
+    K-major), P x (P from registers, split), C S^ (S^ split, MN-major) and
+    (B o w)^T x (the decayed B^T read transposed from the B tile, split)."""
+    npad = ssd.WGMMA_NPAD
+    c = _randn(gen, 64, npad, dtype=torch.bfloat16)
+    bm = _randn(gen, 64, npad, dtype=torch.bfloat16)
+    x = _randn(gen, 64, 64, dtype=torch.bfloat16)
+    f = {"cb": None, "px": _randn(gen, 64, 64), "cs": _randn(gen, npad, 64),
+         "bx": torch.rand(64, generator=gen, device="cuda")}[which]
+    got = ssd.wgmma_tile(which, c=c, bm=bm, x=x, f=f)
+    torch.cuda.synchronize()
+    cf, bf, xf = c.float(), bm.float(), x.float()
+    want = {"cb": lambda: cf @ bf.T, "px": lambda: f @ xf,
+            "cs": lambda: cf @ f, "bx": lambda: (bf * f[:, None]).T @ xf}
+    # hi + lo keeps ~16 bits of each f32 operand: 1e-4 relative to the sums
+    torch.testing.assert_close(got, want[which](), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("s,chunk", [(256, 64), (320, 64), (300, 64),
+                                     (2048, 256), (300, 256), (512, 128)])
+@pytest.mark.parametrize("p,n", [(64, 128), (32, 64), (64, 16)])
+def test_ssd_wgmma_route_matches_plain(gen, s, chunk, p, n):
+    args = _ssd_args(gen, 2, s, 4, p, n, torch.bfloat16)
+    args = (args[0], args[1].float()) + args[2:]
+    c = min(chunk, max(16, s))
+    assert ssd.ssd_route(torch.bfloat16, p, n, c) == "wgmma"
+    before = dict(ssd.ROUTE_LAUNCHES)
+    got = ops.ssd_scan(*args, chunk=chunk)
+    assert ssd.ROUTE_LAUNCHES["wgmma"] == before["wgmma"] + 1
+    pad = (-s) % c
+    padded = [torch.nn.functional.pad(a, [0, 0] * (a.dim() - 2) + [0, pad])
+              if a.dim() > 1 else a for a in args]
+    wy, wS = ssd.plain_ssd_scan(*padded, c)
+    _check_ssd(got, (wy[:, :s], wS), torch.bfloat16, SSD_BF16_REL_NORM)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "cuda_cores"])
+def test_ssd_slow_decay_matches_plain(gen, route):
+    """A state that lives across four chunks, on both routes."""
+    args = _ssd_slow_args(gen, 2, 1024, 4, 64, 128, torch.bfloat16)
+    got = ssd.ssd_scan(*args, chunk=256, route=route)
+    want = ssd.plain_ssd_scan(*args, 256)
+    assert float(want[1].abs().max()) > 0.1
+    _check_ssd(got, want, torch.bfloat16,
+               SSD_BF16_REL_NORM if route == "wgmma" else None)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "cuda_cores"])
+def test_ssd_scoring_shape_on_both_routes(gen, route):
+    """mamba2-2.7b's scoring shape, (8, 2048, 80, 64), n 128, chunk 256,
+    x, B, C bf16 and dt, A f32, B and C the halves of one (b, s, 2n)
+    tensor as the model splits them."""
+    x = _randn(gen, 8, 2048, 80, 64, dtype=torch.bfloat16)
+    dt = _randn(gen, 8, 2048, 80).abs() * 0.5 + 0.01
+    A = -(_randn(gen, 80).abs() + 0.5)
+    B, C = torch.split(_randn(gen, 8, 2048, 256, dtype=torch.bfloat16), 128,
+                       dim=-1)
+    D = _randn(gen, 80, dtype=torch.bfloat16)
+    before = dict(ssd.ROUTE_LAUNCHES)
+    got = ssd.ssd_scan(x, dt, A, B, C, D, chunk=256, route=route)
+    assert ssd.ROUTE_LAUNCHES[route] == before[route] + 1
+    want = ssd.plain_ssd_scan(x, dt, A, B, C, D, 256)
+    _check_ssd(got, want, torch.bfloat16,
+               SSD_BF16_REL_NORM if route == "wgmma" else None)
+
+
+def test_ssd_routes_by_dtype_and_shape(gen):
+    bf = _ssd_args(gen, 1, 256, 2, 64, 128, torch.bfloat16)
+    f32 = _ssd_args(gen, 1, 256, 2, 64, 128, torch.float32)
+    small = _ssd_args(gen, 1, 64, 2, 16, 8, torch.bfloat16)
+    before = dict(ssd.ROUTE_LAUNCHES)
+    ssd.ssd_scan(*bf, chunk=256)
+    ssd.ssd_scan(*f32, chunk=256)
+    ssd.ssd_scan(*small, chunk=16)
+    ssd.ssd_scan(*bf, chunk=256, route="cuda_cores")
+    assert ssd.ROUTE_LAUNCHES == {"wgmma": before["wgmma"] + 1,
+                                  "cuda_cores": before["cuda_cores"] + 3}
+
+
+def test_ssd_wgmma_refuses_what_it_cannot_take(gen):
+    x, dt, A, B, C, D = _ssd_args(gen, 1, 128, 2, 64, 128, torch.bfloat16)
+    before = ssd.LAUNCHES
+    # rows of 130 bf16 (260 bytes): no TMA stride
+    Bw = _randn(gen, 1, 128, 130, dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="16 bytes"):
+        ssd.ssd_scan(x, dt, A, Bw, C, D, chunk=64)
+    with pytest.raises(ValueError, match="wgmma route"):
+        ssd.ssd_scan(x, dt, A, B, C, D, chunk=32, route="wgmma")
+    with pytest.raises(ValueError, match="wgmma route"):
+        ssd.ssd_scan(x.float(), dt, A, B.float(), C.float(), D, chunk=64,
+                     route="wgmma")
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x.half(), dt, A, B.half(), C.half(), D, chunk=64)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd.ssd_scan(x.float().requires_grad_(True), dt, A, B.float(),
+                     C.float(), D, chunk=64)
+    assert ssd.LAUNCHES == before
+    # the CUDA-core route reads the same unaligned view
+    got = ssd.ssd_scan(x, dt, A, Bw, C, D, chunk=64, route="cuda_cores")
+    _check_ssd(got, ssd.plain_ssd_scan(x, dt, A, Bw, C, D, 64),
+               torch.bfloat16)

@@ -349,6 +349,162 @@ def test_ssd_scan_pads_to_the_chunk_and_keeps_the_state():
     np.testing.assert_allclose(S.numpy(), rS.numpy(), rtol=2e-4, atol=2e-4)
 
 
+def _slow_decay_inputs(b, s, h, p, n, name):
+    """Mamba2's initial ranges: dt log-uniform in [1e-3, 1e-1], A = -U[1, 16]
+    (tests/test_kernels.py's dt A ~ -0.5 a token forgets the state within a
+    chunk; these carry it across chunks)."""
+    arrs = (RNG.randn(b, s, h, p),
+            np.exp(RNG.uniform(np.log(1e-3), np.log(1e-1), (b, s, h))),
+            -RNG.uniform(1.0, 16.0, h), RNG.randn(b, s, n),
+            RNG.randn(b, s, n), RNG.randn(h))
+    names = (name, "f32", "f32", name, name, "f32")
+    pairs = [_pair(a, nm) for a, nm in zip(arrs, names)]
+    return [j for j, _ in pairs], [t for _, t in pairs]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("s,chunk,p,n", [(256, 64, 16, 8), (1024, 256, 64, 128)])
+def test_ssd_slow_decay_matches_reference(dtype, s, chunk, p, n):
+    """A state that lives across four chunks: the port against the
+    reference's Pallas kernel at its tolerances."""
+    jargs, targs = _slow_decay_inputs(1, s, 2, p, n, dtype)
+    y, S = ops.ssd_scan(*targs, chunk=chunk)
+    jy, jS = jops.ssd_scan(*jargs, chunk=chunk)
+    assert float(np.abs(_np(jS)).max()) > 0.1
+    ytol = dict(rtol=5e-2, atol=5e-2) if dtype == "bf16" \
+        else dict(rtol=2e-4, atol=2e-4)
+    stol = dict(rtol=1e-2, atol=1e-2) if dtype == "bf16" \
+        else dict(rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(_np(y), _np(jy), **ytol)
+    np.testing.assert_allclose(_np(S), _np(jS), **stol)
+
+
+@pytest.mark.parametrize("dtype,p,n,chunk,route", [
+    (torch.bfloat16, 64, 128, 256, "wgmma"),     # mamba2-2.7b
+    (torch.bfloat16, 64, 64, 256, "wgmma"),      # zamba2-7b
+    (torch.bfloat16, 16, 16, 64, "wgmma"),
+    (torch.bfloat16, 16, 8, 16, "cuda_cores"),   # the reference's sweep
+    (torch.bfloat16, 16, 8, 64, "cuda_cores"),
+    (torch.bfloat16, 64, 128, 32, "cuda_cores"),
+    (torch.bfloat16, 64, 256, 256, "cuda_cores"),
+    (torch.bfloat16, 48, 128, 512, "cuda_cores"),
+    (torch.float32, 64, 128, 256, "cuda_cores"),  # TF32 cannot hold 2e-4
+])
+def test_ssd_route(dtype, p, n, chunk, route):
+    assert ssd.ssd_route(dtype, p, n, chunk) == route
+
+
+def test_ssd_route_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        ssd.ssd_route(torch.float16, 64, 128, 256)
+
+
+def test_kernel_strides_take_the_ssd_views():
+    """The SSD scan's x (b, s, h, p) in place; B and C the halves of one
+    (b, s, 2n) tensor (C's base 256 bytes in); a row of 130 bf16 (260
+    bytes) cannot be read through TMA."""
+    b, s, h, p, n = 2, 64, 80, 64, 128
+    x = torch.empty(b, s, h, p, dtype=torch.bfloat16, device="meta")
+    assert fa.kernel_strides(x, "wgmma") == [s * h * p, h * p, p]
+    B, C = torch.split(torch.empty(b, s, 2 * n, dtype=torch.bfloat16,
+                                   device="meta"), n, dim=-1)
+    assert fa.kernel_strides(B, "wgmma") == [s * 2 * n, 2 * n]
+    assert fa.kernel_strides(C, "wgmma") == [s * 2 * n, 2 * n]
+    wide = torch.empty(b, s, 130, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa.kernel_strides(wide[..., :128], "wgmma")
+
+
+class _FakeSSDLib:
+    """Records the SSD kernel calls the wrapper makes (no card here)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def smlt_ssd_scan_wgmma(self, x, dt, A, B, C, D, y, fs, b, s, h, p, n,
+                            chunk, st, stream):
+        self.calls.append(("wgmma", (b, s, h, p, n, chunk), list(st)))
+        return 0
+
+    def smlt_ssd_scan(self, x, dt, A, B, C, D, y, fs, b, s, h, p, n, chunk,
+                      sbb, sbt, scb, sct, dtype, stream):
+        self.calls.append(("cuda_cores", (b, s, h, p, n, chunk),
+                           [sbb, sbt, scb, sct]))
+        return 0
+
+
+def _fake_ssd(monkeypatch):
+    lib = _FakeSSDLib()
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: _NullContext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    return lib
+
+
+def _meta_ssd_args(b, s, h, p, n, dtype):
+    x = torch.empty(b, s, h, p, dtype=dtype, device="meta")
+    dt = torch.empty(b, s, h, device="meta")
+    hv = torch.empty(h, device="meta")
+    B, C = torch.split(torch.empty(b, s, 2 * n, dtype=dtype, device="meta"),
+                       n, dim=-1)
+    return x, dt, hv, B, C, hv
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "cuda_cores")])
+def test_ssd_wrapper_hands_the_kernel_the_views(monkeypatch, dtype, route):
+    """On a non-CPU tensor (meta stands in for CUDA) the wrapper calls the
+    route's kernel with the model's views in place (B and C the halves of
+    one (b, s, 2n) tensor) and counts one launch on LAUNCHES and its
+    route."""
+    lib = _fake_ssd(monkeypatch)
+    b, s, h, p, n = 2, 512, 4, 64, 128
+    before, by_route = ssd.LAUNCHES, dict(ssd.ROUTE_LAUNCHES)
+    y, S = ssd.ssd_scan(*_meta_ssd_args(b, s, h, p, n, dtype), chunk=256)
+    want = ([s * h * p, h * p, p] + [s * 2 * n, 2 * n] * 2
+            if route == "wgmma" else [s * 2 * n, 2 * n] * 2)
+    assert lib.calls == [(route, (b, s, h, p, n, 256), want)]
+    assert ssd.LAUNCHES == before + 1
+    assert ssd.ROUTE_LAUNCHES[route] == by_route[route] + 1
+    assert y.shape == (b, s, h, p) and y.dtype == dtype
+    assert S.shape == (b, h, n, p) and S.dtype == torch.float32
+
+
+def test_ssd_route_keyword(monkeypatch):
+    """route= picks PR 12's kernel for a bf16 shape the tensor cores take;
+    it never falls back: naming the tensor cores for a shape they do not
+    take raises, as does an unknown route."""
+    lib = _fake_ssd(monkeypatch)
+    args = _meta_ssd_args(1, 256, 2, 64, 128, torch.bfloat16)
+    ssd.ssd_scan(*args, chunk=256, route="cuda_cores")
+    assert [c[0] for c in lib.calls] == ["cuda_cores"]
+    with pytest.raises(ValueError, match="wgmma route"):
+        ssd.ssd_scan(*args, chunk=32, route="wgmma")
+    with pytest.raises(ValueError, match="route"):
+        ssd.ssd_scan(*args, chunk=256, route="tensor")
+    assert len(lib.calls) == 1
+
+
+def test_build_hashes_every_source_and_header(tmp_path, monkeypatch):
+    """Every header a source includes is in _build.HEADERS, and an edit to
+    it names another library, so the next load() rebuilds."""
+    import re
+    import shutil
+    included = set()
+    for src in _build.SOURCES:
+        text = (_build.CSRC / src).read_text()
+        included |= set(re.findall(r'#include "([^"]+)"', text))
+    assert included == set(_build.HEADERS)
+    for name in _build.SOURCES + _build.HEADERS:
+        shutil.copy(_build.CSRC / name, tmp_path / name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path()
+    with open(tmp_path / "hopper.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build.library_path() != before
+
+
 # ---------------------------------------------------------------------------
 # dispatch: only a CPU tensor takes the plain version
 # ---------------------------------------------------------------------------
@@ -387,7 +543,7 @@ def test_non_cpu_tensor_never_takes_plain_path(monkeypatch, call):
 
 def _launches():
     return (hier_agg.LAUNCHES, hier_agg.APPLY_LAUNCHES, fa.LAUNCHES,
-            dict(fa.ROUTE_LAUNCHES), ssd.LAUNCHES)
+            dict(fa.ROUTE_LAUNCHES), ssd.LAUNCHES, dict(ssd.ROUTE_LAUNCHES))
 
 
 def test_cpu_calls_count_no_launch():

@@ -32,7 +32,7 @@ sys.path.insert(0, str(ROOT))
 
 FAMILIES = [  # first match wins
     ("flash kernel (ours)", r"flash_fwd"),    # either route's kernel
-    ("SSD kernel (ours)", r"ssd_scan_kernel"),
+    ("SSD kernel (ours)", r"ssd_scan(_wgmma)?_kernel"),  # either route
     ("aggregation kernel (ours)", r"agg_kernel"),
     ("matmul bf16 (cuBLAS)", r"nvjet|bf16|h_bz"),
     ("matmul f32 (CUDA cores)", r"f32f32|sgemm"),
