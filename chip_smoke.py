@@ -55,13 +55,44 @@ non-zero before the result lines:
      tokens each;
  10. timing of the SSD scan (both routes at the scoring shape, each with
      its achieved TFLOP/s on its own FLOP count and its share of the
-     bound) and aggregate_and_apply as in phase 6.
+     bound) and aggregate_and_apply as in phase 6;
+ 11. the fifth slice's kernel shapes against the plain versions: flash at
+     zamba2-7b's head dim 112 on both routes, causal with windows
+     {0, 64, 4096} at s in {256, 8192} on the model's views (f32
+     2e-4/2e-5; bf16 2e-2/2e-2 and FLASH_BF16_REL_NORM); the bf16 route at
+     the shapes the models launch it with, zamba2-7b's (4, 32, 4096, 112)
+     with window 4096 and qwen2-moe-a2.7b's (8, 16, 2048, 128), at the same
+     bf16 tolerances; the SSD scan at zamba2-7b's scoring shape on both
+     routes (as phase 7);
+ 12. hybrid and MoE wiring at full width, reduced depth: zamba2-7b at
+     depth 7 (one shared-block site and one remainder layer), the loss
+     with the flash and SSD kernels on against off, f32 (rtol 1e-4) and
+     bf16 (SSM_BF16_LOSS_RTOL; the last position's logits with the flash
+     kernel alone within HYBRID_FLASH_LOGITS_REL_NORM of the plain
+     path's); qwen2-moe-a2.7b at depth 2 in f32, flash on against off
+     (rtol 1e-5); in each, every kernel call is also held against its
+     plain version on the model's own inputs (phase 3's and 7's
+     tolerances, and in bf16 FLASH_BF16_REL_NORM and SSD_BF16_REL_NORM);
+ 13. zamba2-7b at full width in bf16 (81 layers, 13 shared-block sites,
+     random weights from seed 0, both kernels): 3 scoring evaluations on
+     4 x 4096 tokens (exactly 13 x 3 flash and 81 x 3 SSD launches, all on
+     the tensor cores), then serving 4 prompts of 4096 tokens with 32 new
+     tokens each (the first decode step writes ring slot 0: the window's
+     ring wraps);
+ 14. qwen2-moe-a2.7b at full width in bf16 (24 layers, 60 routed experts
+     top-4 and 4 shared, seed 0, the flash kernel): 3 scoring evaluations
+     on 8 x 2048 tokens (exactly 24 x 3 flash launches, all on the tensor
+     cores), then serving 4 prompts of 2048 tokens, 32 new tokens each;
+ 15. timing as in phases 6 and 10: flash at zamba2-7b's (4, 32, 4096, 112)
+     with window 4096 and qwen2-moe-a2.7b's (8, 16, 2048, 128), the SSD
+     scan at zamba2-7b's (4, 4096, 112, 64), n 64.
 
 The second-to-last line is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero without.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -99,6 +130,21 @@ SSD_BF16_REL_NORM = 2.5e-4
 # the last position's logits to a relative norm error of 1e-2
 SSM_BF16_LOSS_RTOL = 1e-3
 SSM_BF16_LOGITS_REL_NORM = 1e-2
+# the bf16 hybrid wiring check (phase 12), zamba2-7b at depth 7: the last
+# position's logits with the flash kernel alone on against the plain path
+# read 4.3e-3 to 4.7e-3 over seeds 0-2 (SDPA in its place reads the same;
+# the window cut to a quarter 2.2e-2). With both kernels on they lie
+# 1.9e-2 to 3.8e-2 apart, and scaling either kernel's own error by 4 does
+# not move that: the random-weight Mamba2 layers amplify every bf16
+# rounding, the plain path's own as much (tools/probe_hybrid_bf16.py on an
+# H100 80GB HBM3 at 700 W). So every kernel call is held against its
+# plain version on the model's inputs (held_against_plain), and the logits
+# only where the SSD layers run the same code on both paths
+HYBRID_FLASH_LOGITS_REL_NORM = 1e-2
+# the fifth slice's cells: zamba2-7b scored on 4 x 4096 tokens (Zamba2's
+# 4k context; the 16,384 tokens an evaluation of phase 9) and served
+# 4 prompts of 4096; qwen2-moe-a2.7b on phase 9's 8 x 2048 and 4 x 2048
+HYBRID_BATCH, HYBRID_SEQ = 4, 4096
 
 
 def log(*a):
@@ -379,8 +425,6 @@ def call_ms(fn, runs: int = 20) -> float:
 
 def time_kernels(device, main_len: int, main_shape, gen):
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hier_agg
     out = {}
     x = torch.randn(N_WORKERS, main_len, generator=gen, device=device)
@@ -399,28 +443,44 @@ def time_kernels(device, main_len: int, main_shape, gen):
         f"the {x.numel() * x.element_size()} input bytes takes {copy_ms:.4f} "
         f"ms, {2 * x.numel() * x.element_size() / copy_ms / 1e6:.1f} GB/s")
     del x, dst
-    b, h, s, d = main_shape
-    # the model's transposed (b, s, h, d) views, as the main path calls it
-    q, k, v = bshd_views(main_shape, torch.bfloat16, gen, device)
-    flops = 4.0 * b * h * d * s * (s + 1) / 2   # the pairs the mask leaves
+    out["flash_attention"] = time_flash(device, main_shape, gen)
+    return out
+
+
+def time_flash(device, shape, gen, window: int = 0):
+    """The bf16 flash kernel on the model's transposed (b, s, h, d) views,
+    causal with ``window``, against its plain version and SDPA (the same
+    function where the window does not bite), with its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    b, h, s, d = shape
+    q, k, v = bshd_views(shape, torch.bfloat16, gen, device)
+    # the (query, key) pairs the causal mask and the window leave
+    w = window if 0 < window < s else s
+    pairs = w * (w + 1) / 2 + (s - w) * w
+    flops = 4.0 * b * h * d * pairs
     io = 4 * q.numel() * q.element_size()
-    out["flash_attention"] = dict(
-        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
-        call_ms=call_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
-        plain_ms=time_ms(lambda: fa.plain_flash_attention(q, k, v,
-                                                          causal=True)),
+    f = dict(
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                              window=window)),
+        call_ms=call_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                                   window=window)),
+        plain_ms=time_ms(lambda: fa.plain_flash_attention(
+            q, k, v, causal=True, window=window)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True)),
+            q, k, v, is_causal=True)) if w == s else None,
         bound_ms=max(flops / BF16_FLOPS_PER_S, io / HBM_BYTES_PER_S) * 1e3,
         bound_by="operations" if flops / BF16_FLOPS_PER_S
         >= io / HBM_BYTES_PER_S else "bytes")
-    f = out["flash_attention"]
-    log(f"  flash_attention ({fa.flash_route(q.dtype, d)}) at {main_shape} "
-        f"bf16 causal: {flops / f['ms'] / 1e9:.1f} TFLOP/s, "
-        f"{f['bound_ms'] / f['ms']:.3f} of its bound, "
-        f"{f['ms'] / f['library_ms']:.2f}x SDPA; {f['call_ms']:.4f} ms a "
-        "call timed alone")
-    return out
+    sdpa = f" {f['ms'] / f['library_ms']:.2f}x SDPA;" if f["library_ms"] \
+        else ""
+    log(f"  flash_attention ({fa.flash_route(q.dtype, d)}) at {shape} "
+        f"bf16 causal{f' window {window}' if window else ''}: "
+        f"{flops / f['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{f['bound_ms'] / f['ms']:.3f} of its bound,{sdpa} "
+        f"{f['call_ms']:.4f} ms a call timed alone")
+    return f
 
 
 # ---------------------------------------------------------------------------
@@ -546,26 +606,13 @@ def check_ssd(device, shape, gen):
         held(ssd.ssd_scan(*args, chunk=chunk, route=route), want,
              torch.bfloat16, f"slow decay s={4 * chunk} on {route}", route)
         cases += 1
-    args = ssd_inputs(gen, device, b, s, h, p, n, torch.bfloat16,
-                      dt_dtype=torch.float32, d_dtype=torch.bfloat16,
-                      bc_views=True)
-    want = ssd.plain_ssd_scan(*args, chunk)
-    errs = {}
-    for route in ("cuda_cores", "wgmma"):
-        errs[route] = held(ssd.ssd_scan(*args, chunk=chunk, route=route),
-                           want, torch.bfloat16,
-                           f"scoring shape {shape} on {route}", route)
-        cases += 1
     new = {r: k - routes[r] for r, k in ssd.ROUTE_LAUNCHES.items()}
     if device.type == "cuda":              # a CPU rehearsal launches nothing
         require(new == want_routes, f"ssd routes {new} != {want_routes}")
     log(f"  ssd_scan: {cases} cases within tolerance (routes {new}); "
-        f"scoring shape (b, s, h, p, n, chunk) = {shape}, x/B/C bf16 (B, C "
-        f"views of one (b, s, 2n) tensor), dt/A f32, D bf16: max abs err y "
-        f"wgmma {errs['wgmma']:.3e}, cuda_cores {errs['cuda_cores']:.3e}; "
         f"wgmma relative norm errors {', '.join(f'{r:.3e}' for r in rels)} "
-        f"(limit {SSD_BF16_REL_NORM}; the last is the scoring shape)")
-    return errs["wgmma"]
+        f"(limit {SSD_BF16_REL_NORM})")
+    return check_ssd_shape(device, shape, gen, "mamba2-2.7b")
 
 
 # ---------------------------------------------------------------------------
@@ -711,8 +758,29 @@ def run_serving(cfg, params, device, n_requests: int, prompt_len: int,
 def time_slice_kernels(device, main_len: int, shape, gen):
     import torch
     from repro_torch.kernels import hier_agg
-    from repro_torch.kernels import ssd_scan as ssd
     out = {}
+    out["ssd_scan"], out["ssd_scan_cuda_cores_ms"] = time_ssd(device, shape,
+                                                              gen)
+    x = torch.randn(N_WORKERS, main_len, generator=gen, device=device)
+    p = torch.randn(main_len, generator=gen, device=device)
+    nbytes = (N_WORKERS + 2) * main_len * x.element_size()
+    out["aggregate_and_apply"] = dict(
+        ms=time_ms(lambda: hier_agg.aggregate_and_apply(x, p, LR)),
+        call_ms=call_ms(lambda: hier_agg.aggregate_and_apply(x, p, LR)),
+        plain_ms=time_ms(lambda: hier_agg.plain_aggregate_and_apply(x, p,
+                                                                    LR)),
+        library_ms=time_ms(lambda: (p.float() - LR * x.mean(
+            0, dtype=torch.float32)).to(p.dtype)),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    return out
+
+
+def time_ssd(device, shape, gen):
+    """Both SSD routes at ``shape`` (b, s, h, p, n, chunk) with the model's
+    dtypes and B / C views, twice each in turns, with the bound; returns
+    (the tensor-core route's entry, the CUDA-core route's ms)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
     b, s, h, p, n, chunk = shape
     args = ssd_inputs(gen, device, b, s, h, p, n, torch.bfloat16,
                       dt_dtype=torch.float32, d_dtype=torch.bfloat16,
@@ -747,27 +815,321 @@ def time_slice_kernels(device, main_len: int, shape, gen):
             f"{' / '.join(f'{t:.4f}' for t in ts)} ms back to back; "
             f"{own[route] / min(ts) / 1e9:.1f} TFLOP/s on its own count, "
             f"{bound_ms / min(ts):.4f} of the bound")
-    out["ssd_scan"] = dict(
+    entry = dict(
         ms=routes["wgmma"][0],
         call_ms=call_ms(lambda: ssd.ssd_scan(*args, chunk=chunk)),
         plain_ms=time_ms(lambda: ssd.plain_ssd_scan(*args, chunk)),
         library_ms=None, bound_ms=bound_ms,
         bound_by="operations" if flops / BF16_FLOPS_PER_S
         >= io / HBM_BYTES_PER_S else "bytes")
-    out["ssd_scan_cuda_cores_ms"] = routes["cuda_cores"][0]
-    del args
-    x = torch.randn(N_WORKERS, main_len, generator=gen, device=device)
-    p = torch.randn(main_len, generator=gen, device=device)
-    nbytes = (N_WORKERS + 2) * main_len * x.element_size()
-    out["aggregate_and_apply"] = dict(
-        ms=time_ms(lambda: hier_agg.aggregate_and_apply(x, p, LR)),
-        call_ms=call_ms(lambda: hier_agg.aggregate_and_apply(x, p, LR)),
-        plain_ms=time_ms(lambda: hier_agg.plain_aggregate_and_apply(x, p,
-                                                                    LR)),
-        library_ms=time_ms(lambda: (p.float() - LR * x.mean(
-            0, dtype=torch.float32)).to(p.dtype)),
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
-    return out
+    return entry, routes["cuda_cores"][0]
+
+# ---------------------------------------------------------------------------
+# phases 11-14: the hybrid and MoE families
+# ---------------------------------------------------------------------------
+
+
+def check_flash_head_dim(device, gen, d: int) -> float:
+    """Both flash routes at head dim ``d`` on the model's (b, s, h, d)
+    views, causal with windows {0, 64, 4096} at s in {256, 8192} (the
+    window bites at 8192); returns the bf16 route's max abs error at the
+    last case."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    routes = dict(fa.ROUTE_LAUNCHES)
+    rels = []
+    cases = {torch.float32: 0, torch.bfloat16: 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for seq in (256, 8192):
+            for window in (0, 64, 4096):
+                q, k, v = bshd_views((1, 4, seq, d), dtype, gen, device)
+                got = fa.flash_attention(q, k, v, causal=True, window=window)
+                want = fa.plain_flash_attention(q, k, v, causal=True,
+                                                window=window)
+                what = (f"flash d={d} s={seq} window={window} {dtype} on "
+                        "(b, s, h, d) views")
+                err = require_close(got, want, *tol(dtype), what)
+                if dtype == torch.bfloat16:
+                    rels.append(rel_norm_err(got, want))
+                    require(rels[-1] < FLASH_BF16_REL_NORM, f"{what}: "
+                            f"relative norm error {rels[-1]:.3e} >= "
+                            f"{FLASH_BF16_REL_NORM}")
+                cases[dtype] += 1
+    new = {r: n - routes[r] for r, n in fa.ROUTE_LAUNCHES.items()}
+    if device.type == "cuda":              # a CPU rehearsal launches nothing
+        require(new == {"wgmma": cases[torch.bfloat16],
+                        "cuda_cores": cases[torch.float32]},
+                f"flash d={d} routes {new}: want bf16 on wgmma, f32 on the "
+                "CUDA cores")
+    log(f"  flash d={d}: {sum(cases.values())} cases within tolerance "
+        f"(routes {new}); bf16 relative norm errors "
+        f"{', '.join(f'{r:.3e}' for r in rels)} (limit "
+        f"{FLASH_BF16_REL_NORM}); last bf16 case max abs err {err:.3e}")
+    return err
+
+
+def check_flash_shapes(device, shapes, gen) -> dict:
+    """The bf16 flash kernel at each model's own shape and window
+    (``shapes``: (arch, (b, h, s, d), window)) on its (b, s, h, d) views,
+    against the plain version: 2e-2/2e-2 and FLASH_BF16_REL_NORM, every
+    launch on wgmma; returns each arch's max abs error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    errs = {}
+    for arch, shape, window in shapes:
+        q, k, v = bshd_views(shape, torch.bfloat16, gen, device)
+        routes = dict(fa.ROUTE_LAUNCHES)
+        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        new = {r: n - routes[r] for r, n in fa.ROUTE_LAUNCHES.items()}
+        want = fa.plain_flash_attention(q, k, v, causal=True, window=window)
+        what = f"flash at {arch}'s {shape} window {window} bf16"
+        err = require_close(got, want, 2e-2, 2e-2, what)
+        rel = rel_norm_err(got, want)
+        require(rel < FLASH_BF16_REL_NORM, f"{what}: relative norm error "
+                f"{rel:.3e} >= {FLASH_BF16_REL_NORM}")
+        if device.type == "cuda":          # a CPU rehearsal launches nothing
+            require(new == {"wgmma": 1, "cuda_cores": 0},
+                    f"{what}: routes {new}, want one wgmma launch")
+        log(f"  {what} on (b, s, h, d) views: max abs err {err:.3e}, "
+            f"relative norm err {rel:.3e} (limit {FLASH_BF16_REL_NORM}); "
+            f"routes {new}")
+        errs[arch] = err
+        del q, k, v, got, want
+    return errs
+
+
+def check_ssd_shape(device, shape, gen, name: str) -> float:
+    """Both SSD routes at a model's scoring shape (b, s, h, p, n, chunk)
+    with its dtypes and B / C views, at phase 7's tolerances; returns the
+    tensor-core route's max abs error on y."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ssd
+    b, s, h, p, n, chunk = shape
+    require(ssd.ssd_route(torch.bfloat16, p, n, chunk) == "wgmma",
+            f"{name}'s SSD shape {shape} does not route to wgmma")
+    args = ssd_inputs(gen, device, b, s, h, p, n, torch.bfloat16,
+                      dt_dtype=torch.float32, d_dtype=torch.bfloat16,
+                      bc_views=True)
+    wy, wS = ssd.plain_ssd_scan(*args, chunk)
+    (yr, ya), (sr, sa) = ssd_tol(torch.bfloat16)
+    routes = dict(ssd.ROUTE_LAUNCHES)
+    errs = {}
+    for route in ("cuda_cores", "wgmma"):
+        what = f"ssd {name} shape {shape} on {route}"
+        y, S = ssd.ssd_scan(*args, chunk=chunk, route=route)
+        errs[route] = require_close(y, wy, yr, ya, f"{what}: y")
+        require_close(S, wS, sr, sa, f"{what}: state")
+    rel = rel_norm_err(y, wy)
+    require(rel < SSD_BF16_REL_NORM, f"ssd {name} on wgmma: relative norm "
+            f"error {rel:.3e} >= {SSD_BF16_REL_NORM}")
+    new = {r: k - routes[r] for r, k in ssd.ROUTE_LAUNCHES.items()}
+    if device.type == "cuda":
+        require(new == {"wgmma": 1, "cuda_cores": 1}, f"ssd routes {new}")
+    log(f"  ssd_scan at {name}'s scoring shape (b, s, h, p, n, chunk) = "
+        f"{shape}, B and C views of one (b, s, 2n) tensor: max abs err y "
+        f"wgmma {errs['wgmma']:.3e}, cuda_cores {errs['cuda_cores']:.3e}; "
+        f"wgmma relative norm err {rel:.3e} (limit {SSD_BF16_REL_NORM})")
+    return errs["wgmma"]
+
+
+def attention_sites(cfg) -> int:
+    """Flash launches in one forward without a cache: every layer of the
+    attention families, one per shared-block site of the hybrid."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def want_launches(flash: int = 0, ssd: int = 0) -> dict:
+    return {"aggregate_shards": 0, "aggregate_and_apply": 0,
+            "flash_attention": flash, "ssd_scan": ssd}
+
+
+@contextlib.contextmanager
+def held_against_plain(record: list):
+    """Within the block every ops.flash_attention and ops.ssd_scan call is
+    also run through its plain version on the same inputs (the model's
+    own activations and views) and held to it: flash at tol(dtype), the
+    SSD's y and state at ssd_tol(dtype), and in bf16 the relative norm
+    error of the output within FLASH_BF16_REL_NORM or SSD_BF16_REL_NORM.
+    ``record`` gets (kernel, relative norm error) for each call."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    flash, scan = ops.flash_attention, ops.ssd_scan
+
+    def held(name, got, want, rtol, atol, rel_limit):
+        what = f"{name} call {len(record)} inside the model"
+        require_close(got, want, rtol, atol, what)
+        rel = rel_norm_err(got, want)
+        record.append((name, rel))
+        if got.dtype == torch.bfloat16:
+            require(rel < rel_limit, f"{what}: relative norm error "
+                    f"{rel:.3e} >= {rel_limit}")
+
+    def flash_held(q, k, v, *, causal, window, **kw):
+        out = flash(q, k, v, causal=causal, window=window, **kw)
+        want = fa.plain_flash_attention(q, k, v, causal=causal,
+                                        window=window)
+        held("flash_attention", out, want, *tol(q.dtype),
+             FLASH_BF16_REL_NORM)
+        return out
+
+    def scan_held(x, dt, A, B, C, D, *, chunk):
+        y, S = scan(x, dt, A, B, C, D, chunk=chunk)
+        require(x.shape[1] % chunk == 0, "held SSD calls need whole chunks")
+        wy, wS = ssd.plain_ssd_scan(x, dt, A, B, C, D, chunk)
+        (yr, ya), (sr, sa) = ssd_tol(x.dtype)
+        require_close(S, wS, sr, sa, f"ssd_scan call {len(record)} inside "
+                      "the model: state")
+        held("ssd_scan", y, wy, yr, ya, SSD_BF16_REL_NORM)
+        return y, S
+
+    ops.flash_attention, ops.ssd_scan = flash_held, scan_held
+    try:
+        yield record
+    finally:
+        ops.flash_attention, ops.ssd_scan = flash, scan
+
+
+def check_family_wiring(cfg, device, batch_size: int, seq: int, kernels,
+                        loss_rtol: float, flash_logits: bool = False):
+    """The loss with the model's kernels (``kernels``: names of its
+    ``use_<name>_kernel`` flags) on against off, with every kernel call of
+    the kernel loss held against its plain version on the model's own
+    inputs (held_against_plain). With ``flash_logits`` also the last
+    position's logits with the flash kernel alone on against the plain
+    path, within HYBRID_FLASH_LOGITS_REL_NORM. Each kernel's launches in
+    the kernel loss are counted, on the route the dtype takes."""
+    import torch
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import registry
+    params = registry.init(0, cfg, device)
+    batch = T.from_numpy(make_loader(cfg, seq).next_batch(batch_size), device)
+    on = cfg.replace(**{f"use_{k}_kernel": True for k in kernels})
+    calls = []
+    with torch.no_grad():
+        l0 = float(registry.loss_fn(params, cfg, batch))
+        zero_counts()
+        with held_against_plain(calls):
+            l1 = float(registry.loss_fn(params, on, batch))
+        launches = kernel_counts()
+        routes = {"flash": dict(fa.ROUTE_LAUNCHES),
+                  "ssd": dict(ssd.ROUTE_LAUNCHES)}
+        rel = None
+        if flash_logits:
+            fwd = registry.family_module(cfg).forward_full
+            toks = batch["tokens"]
+            flash_on = cfg.replace(use_flash_kernel=True)
+            rel = rel_norm_err(fwd(params, flash_on, toks)[0][:, -1],
+                               fwd(params, cfg, toks)[0][:, -1])
+    bf16 = cfg.dtype == torch.bfloat16
+    worst = {}
+    for name, r in calls:
+        worst[name] = max(worst.get(name, 0.0), r)
+    log(f"  {cfg.arch_id} wiring ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {'bf16' if bf16 else 'f32'}, {batch_size} x {seq}): "
+        f"loss off {l0!r} on {l1!r} (rel {abs(l1 - l0) / abs(l0):.3e}, "
+        f"limit {loss_rtol}); {len(calls)} kernel calls held against their "
+        f"plain versions on the model's inputs, largest relative norm err "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in worst.items())}"
+        + (f"; last-position logits, flash kernel alone against plain: "
+           f"relative norm err {rel:.3e} (limit "
+           f"{HYBRID_FLASH_LOGITS_REL_NORM})" if flash_logits else "")
+        + f"; launches {launches}, routes {routes}")
+    want = want_launches(
+        flash=attention_sites(cfg) if "flash" in kernels else 0,
+        ssd=cfg.n_layers if "ssd" in kernels else 0)
+    require(len(calls) == want["flash_attention"] + want["ssd_scan"],
+            f"{len(calls)} kernel calls held, want {want}")
+    route = "wgmma" if bf16 else "cuda_cores"
+    if device.type == "cuda":
+        require(launches == want, f"wiring launches {launches} != {want}")
+        for name, key in (("flash", "flash_attention"), ("ssd", "ssd_scan")):
+            require(routes[name][route] == want[key], f"{name} launches "
+                    f"{routes[name]}: want all {want[key]} on {route}")
+    require(math.isfinite(l0) and abs(l1 - l0) <= loss_rtol * abs(l0),
+            f"{cfg.arch_id} wiring loss: kernels {l1!r} vs plain {l0!r} "
+            f"(rtol {loss_rtol})")
+    if flash_logits:
+        require(rel < HYBRID_FLASH_LOGITS_REL_NORM, f"{cfg.arch_id} wiring "
+                f"logits: the flash path is {rel:.3e} from the plain path, "
+                f"limit {HYBRID_FLASH_LOGITS_REL_NORM}")
+
+
+def run_family(cfg, device, n_params: int, batch_size: int, seq: int):
+    """One full-width model of the fifth slice through the port's entry
+    points: SCORE_EVALS scoring evaluations on batch_size x seq tokens,
+    then ServingEngine on SERVE_REQUESTS prompts of seq tokens. Checks the
+    parameter count and every launch count; returns a summary."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import hybrid, registry
+    n = registry.param_count(cfg)
+    require(n == n_params, f"{cfg.arch_id} has {n} params, want {n_params}")
+    flags = [k for k in ("flash", "ssd") if getattr(cfg, f"use_{k}_kernel")]
+    params = registry.init(0, cfg, device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, score_l = run_scoring(cfg, params, device, batch_size, seq,
+                                        SCORE_EVALS)
+    score_peak = torch.cuda.max_memory_allocated()
+    tokens = batch_size * seq
+    log(f"  scoring: {SCORE_EVALS} evaluations of loss_fn on {batch_size} x "
+        f"{seq} tokens: losses {losses}")
+    log(f"  scoring seconds {secs}; tokens/s {[tokens / t for t in secs]}; "
+        f"peak memory {score_peak} bytes ({score_peak / 2**30:.2f} GiB)")
+    want = want_launches(
+        flash=attention_sites(cfg) * SCORE_EVALS if "flash" in flags else 0,
+        ssd=cfg.n_layers * SCORE_EVALS if "ssd" in flags else 0)
+    routes = {"flash": dict(fa.ROUTE_LAUNCHES),
+              "ssd": dict(ssd.ROUTE_LAUNCHES)}
+    log(f"  scoring launches {score_l}, expected {want}; routes {routes}")
+    require(score_l == want, f"scoring launch counts {score_l} != {want}")
+    require(routes == {"flash": {"wgmma": want["flash_attention"],
+                                 "cuda_cores": 0},
+                       "ssd": {"wgmma": want["ssd_scan"], "cuda_cores": 0}},
+            f"bf16 scoring's routes {routes}: want all on wgmma")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the hybrid's prefill runs its shared block's attention without a
+    # cache (the ring is filled from k and v apart), so through the flash
+    # kernel; the MoE prefill attends through its KV cache
+    prefill_flash = attention_sites(cfg) if cfg.family == "hybrid" \
+        and "flash" in flags else 0
+    out, stats, serve_l = run_serving(cfg, params, device, SERVE_REQUESTS,
+                                      seq, SERVE_NEW_TOKENS)
+    serve_peak = torch.cuda.max_memory_allocated()
+    per_tok_ms = stats["decode_s"] / (SERVE_NEW_TOKENS - 1) \
+        / SERVE_REQUESTS * 1e3
+    log(f"  serving: {SERVE_REQUESTS} requests x {seq}-token prompts, "
+        f"{SERVE_NEW_TOKENS} new tokens each; prefill {stats['prefill_s']!r} "
+        f"s ({SERVE_REQUESTS * seq / stats['prefill_s']!r} tokens/s), decode "
+        f"{stats['decode_s']!r} s ({per_tok_ms!r} ms per token per request); "
+        f"peak memory {serve_peak} bytes ({serve_peak / 2**30:.2f} GiB)")
+    want_serve = want_launches(flash=prefill_flash)
+    log(f"  serving launches {serve_l}, expected {want_serve}; first "
+        f"request's tokens {out[0].tokens.tolist()}")
+    require(serve_l == want_serve,
+            f"serving launch counts {serve_l} != {want_serve}")
+    if cfg.family == "hybrid":
+        ring = hybrid.ring_size(cfg, seq + SERVE_NEW_TOKENS)
+        require(ring == cfg.sliding_window and seq % ring == 0,
+                f"ring of {ring} slots: the first decode step at position "
+                f"{seq} does not write slot 0")
+        log(f"  ring cache: {ring} slots a site; decode positions {seq}.."
+            f"{seq + SERVE_NEW_TOKENS - 2} write slots 0..{SERVE_NEW_TOKENS - 2}"
+            ": the ring wrapped")
+    del params, out
+    torch.cuda.empty_cache()
+    return dict(score_launches=score_l, serve_launches=serve_l,
+                score_s=secs, score_peak=score_peak,
+                prefill_s=stats["prefill_s"], decode_ms=per_tok_ms,
+                serve_peak=serve_peak)
 
 
 def main() -> int:
@@ -778,6 +1140,8 @@ def main() -> int:
         return 1
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import registry
 
     t_start = time.perf_counter()
@@ -834,7 +1198,6 @@ def main() -> int:
             "aggregate_and_apply": 0, "ssd_scan": 0}
     log(f"  launches {launches}, expected {want}")
     require(launches == want, f"launch counts {launches} != {want}")
-    from repro_torch.kernels import flash_attention as fa
     routes = dict(fa.ROUTE_LAUNCHES)
     log(f"  flash launches by route {routes}")
     require(routes == {"wgmma": want["flash_attention"], "cuda_cores": 0},
@@ -863,49 +1226,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     scfg = ssm.replace(use_ssd_kernel=True)
-    n_ssm = registry.param_count(scfg)
     log(f"[9] slice 2: {scfg.arch_id} {scfg.n_layers} layers d_model "
         f"{scfg.d_model}, {scfg.ssm_nheads} heads of {scfg.ssm_headdim}, "
-        f"state {scfg.ssm_state}, chunk {scfg.ssm_chunk}, bf16, {n_ssm} "
-        "params, random weights from seed 0; nothing cut")
-    require(n_ssm == 2_702_296_576, f"mamba2-2.7b has {n_ssm} params")
-    params = registry.init(0, scfg, device)
-    torch.cuda.reset_peak_memory_stats()
-    losses, secs, score_launches = run_scoring(scfg, params, device,
-                                               GLOBAL_BATCH, SEQ, SCORE_EVALS)
-    score_peak = torch.cuda.max_memory_allocated()
-    log(f"  scoring: {SCORE_EVALS} evaluations of loss_fn on "
-        f"{GLOBAL_BATCH} x {SEQ} tokens: losses {losses}")
-    log(f"  scoring seconds {secs}; tokens/s {[tokens / t for t in secs]}; "
-        f"peak memory {score_peak} bytes ({score_peak / 2**30:.2f} GiB)")
-    want = {"aggregate_shards": 0, "aggregate_and_apply": 0,
-            "flash_attention": 0, "ssd_scan": scfg.n_layers * SCORE_EVALS}
-    log(f"  scoring launches {score_launches}, expected {want}")
-    require(score_launches == want,
-            f"scoring launch counts {score_launches} != {want}")
-    from repro_torch.kernels import ssd_scan as ssd
-    ssd_routes = dict(ssd.ROUTE_LAUNCHES)
-    log(f"  scoring SSD launches by route {ssd_routes}")
-    require(ssd_routes == {"wgmma": want["ssd_scan"], "cuda_cores": 0},
-            f"bf16 scoring's SSD routes {ssd_routes}: want all on wgmma")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    out, stats, serve_launches = run_serving(scfg, params, device,
-                                             SERVE_REQUESTS, SEQ,
-                                             SERVE_NEW_TOKENS)
-    serve_peak = torch.cuda.max_memory_allocated()
-    per_tok_ms = stats["decode_s"] / (SERVE_NEW_TOKENS - 1) \
-        / SERVE_REQUESTS * 1e3
-    log(f"  serving: {SERVE_REQUESTS} requests x {SEQ}-token prompts, "
-        f"{SERVE_NEW_TOKENS} new tokens each; prefill {stats['prefill_s']!r} s "
-        f"({SERVE_REQUESTS * SEQ / stats['prefill_s']!r} tokens/s), decode "
-        f"{stats['decode_s']!r} s ({per_tok_ms!r} ms per token per request); "
-        f"peak memory {serve_peak} bytes ({serve_peak / 2**30:.2f} GiB)")
-    log(f"  serving launches {serve_launches} (prefill runs the plain "
-        f"chunked SSD from a zero cache, decode the recurrence); first "
-        f"request's tokens {out[0].tokens.tolist()}")
-    del params, out
-    torch.cuda.empty_cache()
+        f"state {scfg.ssm_state}, chunk {scfg.ssm_chunk}, bf16, random "
+        "weights from seed 0; nothing cut (prefill runs the plain chunked "
+        "SSD from a zero cache, decode the recurrence)")
+    mamba = run_family(scfg, device, 2_702_296_576, GLOBAL_BATCH, SEQ)
+    score_launches = mamba["score_launches"]
+    serve_launches = mamba["serve_launches"]
 
     log("[10] timing of the slice's kernels (as in phase 6)")
     times.update(time_slice_kernels(device, flat_len, ssd_shape, gen))
@@ -913,6 +1241,73 @@ def main() -> int:
         log(f"  {name}: {times[name]}")
     log(f"  ssd_scan, PR 12's CUDA-core kernel in the same process: "
         f"{times.pop('ssd_scan_cuda_cores_ms'):.4f} ms back to back")
+
+    hyb, moe_arch = ARCHS["zamba2-7b"], ARCHS["qwen2-moe-a2.7b"]
+    hyb_ssd_shape = (HYBRID_BATCH, HYBRID_SEQ, hyb.ssm_nheads,
+                     hyb.ssm_headdim, hyb.ssm_state,
+                     min(hyb.ssm_chunk, HYBRID_SEQ))
+    flash_shapes = [
+        (hyb.arch_id, (HYBRID_BATCH, hyb.n_heads, HYBRID_SEQ,
+                       hyb.resolved_head_dim), hyb.sliding_window),
+        (moe_arch.arch_id, (GLOBAL_BATCH, moe_arch.n_heads, SEQ,
+                            moe_arch.resolved_head_dim), 0)]
+    log("[11] the fifth slice's kernel shapes vs plain versions")
+    flash112_err = check_flash_head_dim(device, gen,
+                                        d=hyb.resolved_head_dim)
+    flash_shape_errs = check_flash_shapes(device, flash_shapes, gen)
+    torch.cuda.empty_cache()
+    hyb_ssd_err = check_ssd_shape(device, hyb_ssd_shape, gen, hyb.arch_id)
+    torch.cuda.empty_cache()
+
+    log("[12] hybrid and MoE wiring at full width, reduced depth")
+    depth = hyb.attn_every + 1           # one shared-block site, one tail
+    check_family_wiring(hyb.replace(n_layers=depth, dtype=torch.float32),
+                        device, HYBRID_BATCH, HYBRID_SEQ, ("flash", "ssd"),
+                        1e-4)
+    torch.cuda.empty_cache()
+    check_family_wiring(hyb.replace(n_layers=depth), device, HYBRID_BATCH,
+                        HYBRID_SEQ, ("flash", "ssd"), SSM_BF16_LOSS_RTOL,
+                        flash_logits=True)
+    torch.cuda.empty_cache()
+    check_family_wiring(moe_arch.replace(n_layers=2, dtype=torch.float32),
+                        device, SERVE_REQUESTS, SEQ, ("flash",), 1e-5)
+    torch.cuda.empty_cache()
+
+    zcfg = hyb.replace(use_flash_kernel=True, use_ssd_kernel=True)
+    log(f"[13] slice 5: {zcfg.arch_id} {zcfg.n_layers} layers d_model "
+        f"{zcfg.d_model}, {zcfg.ssm_nheads} SSD heads of {zcfg.ssm_headdim}, "
+        f"state {zcfg.ssm_state}; shared attention block after every "
+        f"{zcfg.attn_every} layers ({attention_sites(zcfg)} sites), "
+        f"{zcfg.n_heads} heads of {zcfg.resolved_head_dim}, window "
+        f"{zcfg.sliding_window}; bf16, random weights from seed 0; nothing "
+        "cut")
+    zamba = run_family(zcfg, device, 6_750_539_856, HYBRID_BATCH, HYBRID_SEQ)
+
+    qcfg = moe_arch.replace(use_flash_kernel=True)
+    log(f"[14] slice 5: {qcfg.arch_id} {qcfg.n_layers} layers d_model "
+        f"{qcfg.d_model}, {qcfg.n_experts} routed experts top-{qcfg.top_k} "
+        f"+ {qcfg.n_shared_experts} shared (d_ff {qcfg.d_ff}), capacity "
+        f"factor {qcfg.moe_capacity_factor}, groups of {qcfg.moe_group}, "
+        f"vocab {qcfg.vocab_size}; {registry.param_count(qcfg, True)} "
+        "active params; bf16, seed 0; nothing cut")
+    qwen = run_family(qcfg, device, 14_315_735_040, GLOBAL_BATCH, SEQ)
+
+    log("[15] timing of the fifth slice's kernel shapes (as in phase 6)")
+    runs = {hyb.arch_id: zamba, moe_arch.arch_id: qwen}
+    flash_rows = []
+    for arch, shape, window in flash_shapes:
+        t = time_flash(device, shape, gen, window=window)
+        flash_rows.append(dict(
+            model=arch, shape=list(shape), window=window,
+            launches=(runs[arch]["score_launches"]["flash_attention"]
+                      + runs[arch]["serve_launches"]["flash_attention"]),
+            max_abs_err=flash_shape_errs[arch], **t))
+        log(f"  flash_attention at {arch}'s shape: {flash_rows[-1]}")
+    t, cc_ms = time_ssd(device, hyb_ssd_shape, gen)
+    ssd_rows = [dict(model=hyb.arch_id, shape=list(hyb_ssd_shape),
+                     launches=zamba["score_launches"]["ssd_scan"],
+                     cuda_cores_ms=cc_ms, **t)]
+    log(f"  ssd_scan at {hyb.arch_id}'s shape: {ssd_rows[0]}")
 
     kernels = [
         dict(name="aggregate_shards", route="cuda",
@@ -924,8 +1319,10 @@ def main() -> int:
              variant=fa.flash_route(torch.bfloat16, main_shape[3]),
              source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
              replaces="src/repro/kernels/flash_attention.py:26",
-             launches=launches["flash_attention"], max_abs_err=flash_err,
-             **times["flash_attention"]),
+             launches=launches["flash_attention"] + sum(
+                 r["launches"] for r in flash_rows),
+             max_abs_err=flash_err, max_abs_err_d112=flash112_err,
+             shapes=flash_rows, **times["flash_attention"]),
         dict(name="aggregate_and_apply", route="cuda",
              source="src/repro_torch/kernels/csrc/hier_agg.cu",
              replaces="src/repro/kernels/hier_agg.py:31",
@@ -938,8 +1335,10 @@ def main() -> int:
                                    ssd_shape[4], ssd_shape[5]),
              source="src/repro_torch/kernels/csrc/ssd_scan_wgmma.cu",
              replaces="src/repro/kernels/ssd_scan.py:25",
-             launches=score_launches["ssd_scan"], max_abs_err=ssd_err,
-             **times["ssd_scan"]),
+             launches=score_launches["ssd_scan"] + sum(
+                 r["launches"] for r in ssd_rows),
+             max_abs_err=ssd_err, max_abs_err_zamba2=hyb_ssd_err,
+             shapes=ssd_rows, **times["ssd_scan"]),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -38,14 +38,16 @@ def tree_map(fn: Callable, tree, *rest):
 
 
 def unflatten(like, flat_leaves: List[Any]):
-    """Rebuild ``like``'s structure from leaves in ``leaves`` order."""
-    it = iter(flat_leaves)
+    """Rebuild ``like``'s structure from leaves in ``leaves`` order. (No
+    recursive closure: one would form a reference cycle holding every
+    leaf until the garbage collector runs.)"""
+    return _build(like, iter(flat_leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-    return build(like)
+
+def _build(like, it):
+    if isinstance(like, dict):
+        return {k: _build(like[k], it) for k in sorted(like)}
+    return next(it)
 
 
 def from_numpy(tree, device="cuda"):

@@ -25,6 +25,7 @@
 // 4x4 scores, then 4 x D/16 output accumulators; the 16 threads that share
 // a row reduce its max and sum with warp shuffles. Dynamic shared memory
 // (up to 115,200 bytes at d = 128) is enabled with cudaFuncSetAttribute.
+// Head dims 32, 64, 112 and 128 each have an instance (D a multiple of 16).
 #include <cuda_runtime.h>
 
 namespace {
@@ -211,6 +212,9 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
     case 64:
       return launch<64>(q, k, v, o, b, h, seq_q, seq_k, causal, window,
                         scale, st, s);
+    case 112:  // zamba2-7b: 3584 / 32
+      return launch<112>(q, k, v, o, b, h, seq_q, seq_k, causal, window,
+                         scale, st, s);
     case 128:
       return launch<128>(q, k, v, o, b, h, seq_q, seq_k, causal, window,
                          scale, st, s);
@@ -222,7 +226,7 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // q: (b, h, seq_q, d), k and v: (b, h, seq_k, d), o: (b, h, seq_q, d),
-// each with d contiguous; strides: 12 element strides (b, h, s) of q, k, v
+// each with d contiguous, d in {32, 64, 112, 128}; strides: 12 element strides (b, h, s) of q, k, v
 // and o, in that order, all float32. Returns cudaGetLastError() after the
 // launch (0 on success).
 extern "C" int smlt_flash_attention_fwd(const void* q, const void* k,

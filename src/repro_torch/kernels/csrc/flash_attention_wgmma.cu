@@ -49,6 +49,14 @@
 // any other strides that are multiples of 16 bytes (the TMA descriptors
 // carry them), so the model's transposed (b, s, h, d) tensors need no copy;
 // the output is written through its own strides.
+//
+// Head dims: 32, 64 and 128 each have their own instance; 112 (zamba2's
+// 3584 / 32) runs the 128 instance over TMA maps whose inner extent is the
+// true 112. The boxes stay two chunks of 64 columns, so columns 112-127
+// arrive as zeros (out-of-bounds fill) and still count in the barrier's
+// transaction bytes, as rows past seq do: zero K columns leave S = Q K^T
+// unchanged, zero V columns give output columns 112-127 that the store,
+// masked to d, never writes.
 #include "hopper.cuh"
 
 namespace {
@@ -171,8 +179,8 @@ __global__ void __launch_bounds__(N_THREADS, 1)
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
                            __nv_bfloat16* __restrict__ o, OutStrides os,
-                           int n_heads, int seq_q, int seq_k, int causal,
-                           int window, float scale_log2) {
+                           int n_heads, int seq_q, int seq_k, int head_dim,
+                           int causal, int window, float scale_log2) {
   using G = Geo<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
@@ -356,10 +364,11 @@ __global__ void __launch_bounds__(N_THREADS, 1)
         pack_bf16(acc[j] / denom[r], acc[j + 1] / denom[r]);
   }
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-  constexpr int GROUPS = D / 8;  // 16-byte groups a row
-  for (int idx = t; idx < 64 * GROUPS; idx += 128) {
-    const int row = wg * 64 + idx / GROUPS;
-    const int col = (idx % GROUPS) * 8;
+  // 16-byte groups a row: head_dim / 8 of the tile's D / 8 hold output
+  const int groups = head_dim / 8;
+  for (int idx = t; idx < 64 * groups; idx += 128) {
+    const int row = wg * 64 + idx / groups;
+    const int col = (idx % groups) * 8;
     const int qpos = q_start + row;
     if (qpos >= seq_q) continue;
     const uint4 val = *reinterpret_cast<const uint4*>(
@@ -414,14 +423,14 @@ __global__ void __launch_bounds__(128)
     out[(r0 + 8 * ((j >> 1) & 1)) * BK + 8 * (j / 4) + cq + (j & 1)] = s[j];
 }
 
-// O (64 x D, f32) = P (64 x 128, bf16, row-major in global memory, read
-// into A fragments) V, V (128 x D) from TMA-loaded shared memory as the
-// MN-major B operand
+// O (64 x head_dim, f32) = P (64 x 128, bf16, row-major in global memory,
+// read into A fragments) V, V (128 x head_dim) from TMA-loaded shared
+// memory as the MN-major B operand (columns head_dim..D-1 zero-filled)
 template <int D>
 __global__ void __launch_bounds__(128)
     pv_tile_kernel(const __nv_bfloat16* __restrict__ pg,
                    const __grid_constant__ CUtensorMap tm_v,
-                   float* __restrict__ out) {
+                   float* __restrict__ out, int head_dim) {
   using G = Geo<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
@@ -464,22 +473,26 @@ __global__ void __launch_bounds__(128)
   wgmma_wait<0>();
   fence_regs(acc);
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j)
-    out[(r0 + 8 * ((j >> 1) & 1)) * D + 8 * (j / 4) + cq + (j & 1)] = acc[j];
+  for (int j = 0; j < D / 2; ++j) {
+    const int col = 8 * (j / 4) + cq + (j & 1);
+    if (col < head_dim)
+      out[(r0 + 8 * ((j >> 1) & 1)) * head_dim + col] = acc[j];
+  }
 }
 
 // ---- host side
 
 // A (b, h, s, d) bf16 tensor as a 4-D TMA map, innermost first, with boxes
 // of (CHUNK columns, `rows` rows) swizzled for wgmma. strides: b, h, s in
-// elements (multiples of 8), d contiguous.
+// elements (multiples of 8), d contiguous; d <= D, and the columns d..D-1
+// of a box are out of bounds (zero-filled).
 template <int D>
-int make_map(CUtensorMap* map, const void* base, int b, int h, int s,
+int make_map(CUtensorMap* map, const void* base, int b, int h, int s, int d,
              const long long* strides, int rows) {
   using G = Geo<D>;
   EncodeTiled enc = encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(h),
                               static_cast<cuuint64_t>(b)};
@@ -499,13 +512,13 @@ int make_map(CUtensorMap* map, const void* base, int b, int h, int s,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int h, int seq_q, int seq_k, int causal, int window, float scale,
-           const long long* st, cudaStream_t stream) {
+           int h, int seq_q, int seq_k, int d, int causal, int window,
+           float scale, const long long* st, cudaStream_t stream) {
   using G = Geo<D>;
   CUtensorMap mq, mk, mv;
-  int err = make_map<D>(&mq, q, b, h, seq_q, st, BQ);
-  if (!err) err = make_map<D>(&mk, k, b, h, seq_k, st + 3, BK);
-  if (!err) err = make_map<D>(&mv, v, b, h, seq_k, st + 6, BK);
+  int err = make_map<D>(&mq, q, b, h, seq_q, d, st, BQ);
+  if (!err) err = make_map<D>(&mk, k, b, h, seq_k, d, st + 3, BK);
+  if (!err) err = make_map<D>(&mv, v, b, h, seq_k, d, st + 6, BK);
   if (err) return err;
   // the attribute holds per device: set it once on each
   static bool attr_set[64] = {};
@@ -522,22 +535,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid(b * h, (seq_q + BQ - 1) / BQ);
   const OutStrides os{st[9], st[10], st[11]};
   flash_fwd_wgmma_kernel<D><<<grid, N_THREADS, G::ALLOC, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), os, h, seq_q, seq_k, causal,
-      window, scale * LOG2E);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), os, h, seq_q, seq_k, d,
+      causal, window, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_tile(int which, const void* a, const void* bt, void* out,
+int launch_tile(int which, const void* a, const void* bt, void* out, int d,
                 cudaStream_t stream) {
   using G = Geo<D>;
-  const long long q_st[3] = {64LL * D, 64LL * D, D};
-  const long long kv_st[3] = {1LL * BK * D, 1LL * BK * D, D};
+  const long long q_st[3] = {64LL * d, 64LL * d, d};
+  const long long kv_st[3] = {1LL * BK * d, 1LL * BK * d, d};
   CUtensorMap ma, mb;
   cudaError_t e;
   if (which == 0) {  // S = Q K^T
-    int err = make_map<D>(&ma, a, 1, 1, 64, q_st, BQ);
-    if (!err) err = make_map<D>(&mb, bt, 1, 1, BK, kv_st, BK);
+    int err = make_map<D>(&ma, a, 1, 1, 64, d, q_st, BQ);
+    if (!err) err = make_map<D>(&mb, bt, 1, 1, BK, d, kv_st, BK);
     if (err) return err;
     const int smem = G::Q_BYTES + G::KV_BYTES + 64 + 1024;
     e = cudaFuncSetAttribute(qk_tile_kernel<D>,
@@ -546,14 +559,15 @@ int launch_tile(int which, const void* a, const void* bt, void* out,
     qk_tile_kernel<D><<<1, 128, smem, stream>>>(ma, mb,
                                                 static_cast<float*>(out));
   } else {  // O = P V
-    int err = make_map<D>(&mb, bt, 1, 1, BK, kv_st, BK);
+    int err = make_map<D>(&mb, bt, 1, 1, BK, d, kv_st, BK);
     if (err) return err;
     const int smem = G::KV_BYTES + 64 + 1024;
     e = cudaFuncSetAttribute(pv_tile_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     pv_tile_kernel<D><<<1, 128, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(a), mb, static_cast<float*>(out));
+        static_cast<const __nv_bfloat16*>(a), mb, static_cast<float*>(out),
+        d);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -561,10 +575,11 @@ int launch_tile(int which, const void* a, const void* bt, void* out,
 }  // namespace
 
 // q: (b, h, seq_q, d), k and v: (b, h, seq_k, d), o: (b, h, seq_q, d), all
-// bf16 with d contiguous. strides: 12 element strides (b, h, s) of q, k, v
-// and o, in that order; those of q, k and v multiples of 8 and their bases
-// 16-byte aligned (TMA). Returns 0, a cudaError_t, or 9001 / 9100 + CUresult
-// when the TMA descriptors cannot be made.
+// bf16 with d contiguous, d in {32, 64, 112, 128}. strides: 12 element
+// strides (b, h, s) of q, k, v and o, in that order; those of q, k and v
+// multiples of 8 and their bases 16-byte aligned (TMA). Returns 0, a
+// cudaError_t, or 9001 / 9100 + CUresult when the TMA descriptors cannot
+// be made.
 extern "C" int smlt_flash_attention_fwd_wgmma(const void* q, const void* k,
                                               const void* v, void* o, int b,
                                               int h, int seq_q, int seq_k,
@@ -577,29 +592,31 @@ extern "C" int smlt_flash_attention_fwd_wgmma(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return launch<32>(q, k, v, o, b, h, seq_q, seq_k, causal, window, scale,
-                        strides, s);
+      return launch<32>(q, k, v, o, b, h, seq_q, seq_k, d, causal, window,
+                        scale, strides, s);
     case 64:
-      return launch<64>(q, k, v, o, b, h, seq_q, seq_k, causal, window, scale,
-                        strides, s);
+      return launch<64>(q, k, v, o, b, h, seq_q, seq_k, d, causal, window,
+                        scale, strides, s);
+    case 112:  // the 128 instance, columns 112-127 zero-filled by TMA
     case 128:
-      return launch<128>(q, k, v, o, b, h, seq_q, seq_k, causal, window,
+      return launch<128>(q, k, v, o, b, h, seq_q, seq_k, d, causal, window,
                          scale, strides, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// One tile of either product, contiguous bf16 in, f32 out, BK = 128 keys.
-// which = 0: out (64, BK) = a (64, d) b^T with b (BK, d); which = 1:
-// out (64, d) = a (64, BK) b with b (BK, d).
+// One tile of either product, contiguous bf16 in, f32 out, BK = 128 keys,
+// d in {32, 64, 112, 128}. which = 0: out (64, BK) = a (64, d) b^T with
+// b (BK, d); which = 1: out (64, d) = a (64, BK) b with b (BK, d).
 extern "C" int smlt_wgmma_tile(int which, const void* a, const void* b,
                                void* out, int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch_tile<32>(which, a, b, out, s);
-    case 64: return launch_tile<64>(which, a, b, out, s);
-    case 128: return launch_tile<128>(which, a, b, out, s);
+    case 32: return launch_tile<32>(which, a, b, out, d, s);
+    case 64: return launch_tile<64>(which, a, b, out, d, s);
+    case 112:
+    case 128: return launch_tile<128>(which, a, b, out, d, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -14,6 +14,13 @@ kernels, chosen by dtype alone (``flash_route``):
 On an H100 the function is bound by operations: 4 * b * h * d * s^2 / 2
 causal FLOPs against the 989 TFLOP/s bf16 tensor-core rate.
 
+Head dims: 32, 64, 112 and 128 (``HEAD_DIMS``), every head dim of the
+configurations in ``configs`` and of their reduced forms. The tensor-core
+kernel runs d = 112 (zamba2-7b's 3584 / 32) on its d = 128 instance,
+reading the true 112 columns through TMA (the rest arrive as zeros) and
+storing 112; the CUDA-core kernel has a d = 112 instance. Neither pads a
+copy.
+
 Both kernels read q, k and v as strided (b, h, s, d) views with d
 contiguous (the tensor-core route also needs 16-byte aligned bases and
 strides, for TMA) and write the output in (b, s, h, d) memory order,
@@ -37,7 +44,7 @@ from repro_torch.kernels import _build
 LAUNCHES = 0  # kernel launches of flash_attention (plain calls not counted)
 ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}  # the same launches by route
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 WGMMA_BK = 128  # keys per tile of the tensor-core kernel (BK in its source)
 NEG_INF = -1e30
 
@@ -68,9 +75,9 @@ def plain_flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def flash_route(dtype: torch.dtype, d: int) -> str:
-    """Which kernel takes (dtype, head dim d): bf16 the tensor cores
-    ("wgmma"), f32 the CUDA cores ("cuda_cores"). Raises on anything
-    else."""
+    """Which kernel takes (dtype, head dim d in ``HEAD_DIMS``): bf16 the
+    tensor cores ("wgmma"), f32 the CUDA cores ("cuda_cores"). Raises on
+    anything else."""
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if dtype == torch.bfloat16:
@@ -144,7 +151,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 def wgmma_tile(a, b, which: str):
     """One tile of the tensor-core kernel's products, for the card tests
-    (counts no launch), with n = WGMMA_BK keys: ``"qk"``: a (64, d) @
+    (counts no launch), with n = WGMMA_BK keys and d in ``HEAD_DIMS`` (112
+    through the d = 128 instance, as in the kernel): ``"qk"``: a (64, d) @
     b (n, d)^T -> (64, n); ``"pv"``: a (64, n) @ b (n, d) -> (64, d); bf16
     in, f32 out, both contiguous."""
     d, n = b.shape[1], WGMMA_BK

@@ -23,8 +23,10 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 
-def dense_init(normal, d_in: int, d_out: int, dtype):
-    return (normal((d_in, d_out)) * d_in ** -0.5).to(dtype)
+def dense_init(normal, d_in: int, d_out: int, dtype,
+               scale: Optional[float] = None):
+    scale = scale if scale is not None else d_in ** -0.5
+    return (normal((d_in, d_out)) * scale).to(dtype)
 
 
 def embed_init(normal, vocab: int, d_model: int, dtype):
@@ -227,8 +229,8 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(normal, cfg: ModelConfig):
-    d_ff, d_model = cfg.d_ff, cfg.d_model
+def init_mlp(normal, cfg: ModelConfig, d_ff: Optional[int] = None):
+    d_ff, d_model = d_ff or cfg.d_ff, cfg.d_model
     if cfg.mlp == "swiglu":
         return {"wi": dense_init(normal, d_model, d_ff, cfg.dtype),
                 "wg": dense_init(normal, d_model, d_ff, cfg.dtype),
@@ -270,8 +272,10 @@ def unembed(params, cfg: ModelConfig, h):
 def cross_entropy(logits, labels, cfg: ModelConfig):
     """Mean next-token CE; masks vocab-padding columns and label == -1."""
     vp = logits.shape[-1]
-    col_mask = torch.arange(vp, device=logits.device) < cfg.vocab_size
-    logits = torch.where(col_mask, logits.float(), NEG_INF)
+    logits = logits.float()
+    if vp > cfg.vocab_size:  # no masked copy when nothing is padded
+        col_mask = torch.arange(vp, device=logits.device) < cfg.vocab_size
+        logits = torch.where(col_mask, logits, NEG_INF)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         torch.clamp(labels, min=0).long()[..., None])[..., 0]

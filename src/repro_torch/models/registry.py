@@ -1,5 +1,6 @@
 """Family registry: one API over the architecture families (port of the JAX
-package's ``models/registry.py``; the dense and ssm families so far).
+package's ``models/registry.py``; the dense, moe, ssm and hybrid families
+so far).
 
     init(seed, cfg, device)        -> params
     loss_fn(params, cfg, batch)    -> scalar loss
@@ -15,13 +16,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import tree as T
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import hybrid, mamba2, moe, transformer
 from repro_torch.models.base import ModelConfig
 
-_FAMILIES = {"dense": transformer, "ssm": mamba2}
+_FAMILIES = {"dense": transformer, "moe": moe, "ssm": mamba2,
+             "hybrid": hybrid}
 
 # the ROADMAP item that ports each family not yet in the port
-_PENDING = {"moe": "A13", "hybrid": "A12", "vlm": "A14", "audio": "A14"}
+_PENDING = {"vlm": "A14", "audio": "A14"}
 
 
 def family_module(cfg: ModelConfig):
@@ -67,13 +69,21 @@ def init_decode_cache(params, cfg: ModelConfig, batch: int, max_seq: int,
     ``batch_extras``) are not ported yet."""
     mod = family_module(cfg)
     device = T.leaves(params)[0].device
-    if cfg.family == "dense":
-        return mod.init_cache(cfg, batch, max_seq, device)
-    return mod.init_cache(cfg, batch, device=device)
+    if cfg.family == "ssm":
+        return mod.init_cache(cfg, batch, device=device)
+    return mod.init_cache(cfg, batch, max_seq, device)
 
 
-def param_count(cfg: ModelConfig) -> int:
-    return sum(x.numel() for x in T.leaves(init(0, cfg, device="meta")))
+def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters of ``cfg``; with ``active_only``, an MoE model's routed
+    experts count top_k / n_experts of theirs (those one token runs)."""
+    shapes = init(0, cfg, device="meta")
+    total = sum(x.numel() for x in T.leaves(shapes))
+    if active_only and cfg.n_experts:
+        expert = sum(x.numel()
+                     for x in T.leaves(shapes["blocks"]["moe"]["experts"]))
+        total = total - expert + expert * cfg.top_k // cfg.n_experts
+    return total
 
 
 def param_bytes(cfg: ModelConfig) -> int:

@@ -28,10 +28,17 @@ def init_block(normal, cfg: ModelConfig, device):
 
 
 def stack_init(fn, n: int):
-    """Call a per-layer init n times and stack every leaf on a new axis 0."""
-    per_layer = [fn() for _ in range(n)]
-    return T.unflatten(per_layer[0], [torch.stack(xs) for xs in zip(
-        *(T.leaves(p) for p in per_layer))])
+    """Call a per-layer init n times and stack every leaf on a new axis 0.
+    Each layer is copied into the stack as it is drawn, so the peak is the
+    stack and one layer, not two stacks."""
+    first = fn()
+    stacked = [torch.empty((n,) + x.shape, dtype=x.dtype, device=x.device)
+               for x in T.leaves(first)]
+    for i in range(n):
+        layer = first if i == 0 else fn()
+        for dst, x in zip(stacked, T.leaves(layer)):
+            dst[i].copy_(x)
+    return T.unflatten(first, stacked)
 
 
 def apply_block(bp, cfg: ModelConfig, h, *, positions=None, cache=None,
@@ -53,7 +60,7 @@ def init(normal, cfg: ModelConfig, device):
     }
 
 
-def _unbind_layers(tree, n: int):
+def unbind_layers(tree, n: int):
     """A stacked tree -> n per-layer trees (views, one unbind per leaf)."""
     ls = T.leaves(tree)
     per_leaf = [torch.unbind(x, 0) for x in ls]
@@ -64,8 +71,8 @@ def run_layers(h, blocks, cache, n: int, apply):
     """Run ``apply(h, bp, c) -> (h, new_c)`` over the n stacked layers in
     order. ``cache`` (if given) is stacked on the layer axis, and so is
     the returned cache; without one the result's cache is None."""
-    bps = _unbind_layers(blocks, n)
-    caches = _unbind_layers(cache, n) if cache is not None else [None] * n
+    bps = unbind_layers(blocks, n)
+    caches = unbind_layers(cache, n) if cache is not None else [None] * n
     new_caches = []
     for bp, c in zip(bps, caches):
         h, nc = apply(h, bp, c)

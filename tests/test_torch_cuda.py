@@ -57,7 +57,7 @@ def test_aggregate_kernel_on_unaligned_view(gen):
                        hier_agg.plain_aggregate_shards(x))
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 112, 128])
 @pytest.mark.parametrize("which", ["qk", "pv"])
 def test_wgmma_tile_products_match_matmul(gen, d, which):
     """Each product of the tensor-core kernel alone on one tile, against
@@ -82,7 +82,7 @@ def _bshd(gen, b, s, h, d, dtype):
     return _randn(gen, b, s, h, d, dtype=dtype).transpose(1, 2)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 112, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("seq_q,seq_k,window", [(100, 100, 0), (64, 64, 16),
                                                 (257, 257, 100), (3, 70, 0)])
@@ -121,7 +121,7 @@ def test_flash_route_launch_counts(gen, dtype, route):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 112, 128])
 def test_flash_strided_and_contiguous_bit_equal(gen, dtype, d):
     q, k, v = [_bshd(gen, 2, 300, 4, d, dtype) for _ in range(3)]
     for causal, window in ((True, 0), (True, 64), (False, 0)):
@@ -130,6 +130,31 @@ def test_flash_strided_and_contiguous_bit_equal(gen, dtype, d):
                                   v.contiguous(), causal=causal,
                                   window=window)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq,window", [(256, 0), (256, 64), (256, 4096),
+                                        (8192, 0), (8192, 64), (8192, 4096)])
+def test_flash_d112_on_both_routes(gen, dtype, seq, window):
+    """zamba2-7b's head dim, 112 (3584 / 32), on the model's (b, s, h, d)
+    views: bf16 on the tensor cores through the d = 128 instance with
+    columns 112-127 zero-filled, f32 on the CUDA cores' d = 112 instance;
+    the window bites at 8192. The output is stored to 112 columns only."""
+    route = fa.flash_route(dtype, 112)
+    q, k, v = [_bshd(gen, 1, seq, 2, 112, dtype) for _ in range(3)]
+    before = dict(fa.ROUTE_LAUNCHES)
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    assert fa.ROUTE_LAUNCHES[route] == before[route] + 1
+    want = fa.plain_flash_attention(q, k, v, causal=True, window=window)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        assert _rel_norm_err(got, want) < BF16_REL_NORM
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    # (b, s, h, 112) memory: a store past column 111 would have written
+    # zeros over the next head's first columns
+    assert got.transpose(1, 2).is_contiguous()
 
 
 @pytest.mark.parametrize("window", [16, 64, 100])
@@ -353,6 +378,26 @@ def test_ssd_scoring_shape_on_both_routes(gen, route):
     B, C = torch.split(_randn(gen, 8, 2048, 256, dtype=torch.bfloat16), 128,
                        dim=-1)
     D = _randn(gen, 80, dtype=torch.bfloat16)
+    before = dict(ssd.ROUTE_LAUNCHES)
+    got = ssd.ssd_scan(x, dt, A, B, C, D, chunk=256, route=route)
+    assert ssd.ROUTE_LAUNCHES[route] == before[route] + 1
+    want = ssd.plain_ssd_scan(x, dt, A, B, C, D, 256)
+    _check_ssd(got, want, torch.bfloat16,
+               SSD_BF16_REL_NORM if route == "wgmma" else None)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "cuda_cores"])
+def test_ssd_zamba2_state_64_on_both_routes(gen, route):
+    """zamba2-7b's SSD: 112 heads of 64, state n 64 (padded to WGMMA_NPAD
+    inside the tensor-core kernel), chunk 256, B and C the halves of one
+    (b, s, 2n) tensor, at a cut batch and sequence."""
+    x = _randn(gen, 1, 1024, 112, 64, dtype=torch.bfloat16)
+    dt = _randn(gen, 1, 1024, 112).abs() * 0.5 + 0.01
+    A = -(_randn(gen, 112).abs() + 0.5)
+    B, C = torch.split(_randn(gen, 1, 1024, 128, dtype=torch.bfloat16), 64,
+                       dim=-1)
+    D = _randn(gen, 112, dtype=torch.bfloat16)
+    assert ssd.ssd_route(torch.bfloat16, 64, 64, 256) == "wgmma"
     before = dict(ssd.ROUTE_LAUNCHES)
     got = ssd.ssd_scan(x, dt, A, B, C, D, chunk=256, route=route)
     assert ssd.ROUTE_LAUNCHES[route] == before[route] + 1

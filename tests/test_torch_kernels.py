@@ -165,7 +165,7 @@ def test_flash_noncausal_padded_kv_raises():
         ops.flash_attention(q, q, q, causal=False, block_q=16, block_k=16)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 112, 128])
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
                                          (torch.float32, "cuda_cores")])
 def test_flash_route_by_dtype(d, dtype, route):
@@ -177,11 +177,24 @@ def test_flash_route_by_dtype(d, dtype, route):
 def test_flash_route_refuses_other_dtypes_and_dims():
     with pytest.raises(TypeError, match="f32 or bf16"):
         fa.flash_route(torch.float16, 64)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_route(torch.bfloat16, 48)
+    for d in (48, 96, 120, 256):
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_route(torch.bfloat16, d)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_takes_every_head_dim_of_the_configs():
+    """Every arch's head dim, full width and reduced, has a route on
+    both dtypes (zamba2-7b's is 112)."""
+    from repro_torch.configs import ARCHS, reduced
+    dims = {c.resolved_head_dim for a in ARCHS.values() if a.n_heads
+            for c in (a, reduced(a))}
+    assert dims == {32, 64, 112, 128}
+    for d in dims:
+        for dtype in (torch.float32, torch.bfloat16):
+            fa.flash_route(dtype, d)
+
+
+@pytest.mark.parametrize("d", [32, 64, 112, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_strides_take_the_models_views(d, dtype):
     """The model's q.transpose(1, 2) of (b, s, h, d) memory is read in
@@ -229,6 +242,23 @@ def test_flash_on_transposed_views_matches_reference(dtype, window):
     np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("seq,window", [(128, 0), (160, 24), (256, 64)])
+def test_flash_head_dim_112_matches_reference(dtype, seq, window):
+    """zamba2-7b's head dim on the model's (b, s, h, d) views, causal and
+    windowed, against the reference's Pallas kernel in interpret mode."""
+    b, h, d = 1, 2, 112
+    pairs = [_pair(RNG.randn(b, seq, h, d), dtype) for _ in range(3)]
+    jq, jk, jv = [jnp.transpose(j, (0, 2, 1, 3)) for j, _ in pairs]
+    tq, tk, tv = [t.transpose(1, 2) for _, t in pairs]
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window,
+                              block_q=64, block_k=64)
+    want = jops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                block_q=64, block_k=64)
+    assert got.shape == (b, h, seq, d)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+
+
 class _FakeLib:
     """Records the kernel calls the wrapper makes (no card here)."""
 
@@ -246,9 +276,11 @@ class _FakeLib:
         return 0
 
 
+@pytest.mark.parametrize("d", [32, 112])
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
                                          (torch.float32, "cuda_cores")])
-def test_flash_wrapper_hands_the_kernel_the_views(monkeypatch, dtype, route):
+def test_flash_wrapper_hands_the_kernel_the_views(monkeypatch, dtype, route,
+                                                  d):
     """On a non-CPU tensor (meta stands in for CUDA) the wrapper calls the
     route's kernel with the views' own strides, counts one launch on
     LAUNCHES and on its route, and returns a (b, h, s, d) view of
@@ -258,7 +290,7 @@ def test_flash_wrapper_hands_the_kernel_the_views(monkeypatch, dtype, route):
     monkeypatch.setattr(torch.cuda, "device", lambda dev: _NullContext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: type("S", (), {"cuda_stream": 0})())
-    b, s, h, d = 2, 64, 4, 32
+    b, s, h = 2, 64, 4
     q, k, v = [torch.empty(b, s, h, d, dtype=dtype, device="meta")
                .transpose(1, 2) for _ in range(3)]
     before, by_route = fa.LAUNCHES, dict(fa.ROUTE_LAUNCHES)

@@ -222,10 +222,15 @@ def test_olmo_1b_full_width():
 
 
 def test_other_families_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A12"):
-        registry.param_count(ARCHS["zamba2-7b"])
-    with pytest.raises(NotImplementedError, match="A13"):
-        registry.init(0, reduced(ARCHS["arctic-480b"]), "cpu")
+    """The families not ported yet (vlm, audio) raise, naming A14; hybrid
+    and moe are ported."""
+    with pytest.raises(NotImplementedError, match="A14"):
+        registry.param_count(ARCHS["llama-3.2-vision-90b"])
+    with pytest.raises(NotImplementedError, match="A14"):
+        registry.init(0, reduced(ARCHS["seamless-m4t-medium"]), "cpu")
+    from repro_torch.models import hybrid, moe
+    assert registry.family_module(ARCHS["zamba2-7b"]) is hybrid
+    assert registry.family_module(ARCHS["arctic-480b"]) is moe
 
 
 def test_params_bridge_roundtrip_keeps_keys_shapes_and_bits():

@@ -1,7 +1,10 @@
 """The port's serving engine and launcher (``repro_torch.serving``,
-``repro_torch.launch.serve``) against the reference's on reduced olmo-1b
-and mamba2-2.7b in f32: the reference's weights carried across, the same
-prompts, identical greedy tokens."""
+``repro_torch.launch.serve``) against the reference's on reduced olmo-1b,
+mamba2-2.7b and zamba2-7b in f32: the reference's weights carried across,
+the same prompts, identical greedy tokens. The MoE family is not
+batching-invariant (an expert's capacity depends on the batch), so its
+greedy tokens are held to the reference engine's in
+``tests/test_torch_moe.py`` and only its launcher runs here."""
 import functools
 
 import pytest
@@ -21,7 +24,8 @@ from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
-SERVED = ["olmo-1b", "mamba2-2.7b"]
+SERVED = ["olmo-1b", "mamba2-2.7b", "zamba2-7b"]
+LAUNCHED = SERVED + ["qwen2-moe-a2.7b"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,7 +93,7 @@ def test_engine_defaults_to_cuda_and_never_falls_back():
         ServingEngine(reduced(ARCHS["mamba2-2.7b"]))
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", LAUNCHED)
 def test_serve_launcher_on_cpu(arch, capsys):
     toks = launch_serve.main(["--arch", arch, "--reduced", "--requests", "2",
                               "--prompt-len", "8", "--gen", "4",

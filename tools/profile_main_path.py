@@ -39,6 +39,7 @@ FAMILIES = [  # first match wins
     ("matmul other", r"gemm|xmma|cutlass|cublas"),
     ("reduction", r"reduce|Reduce"),
     ("softmax / logsumexp", r"softmax|logsumexp|LogSumExp"),
+    ("scan (cumsum)", r"scan"),
     ("copy / cast / cat", r"copy|Copy|cat|Cat|direct_copy"),
     ("index / gather / scatter", r"index|Index|gather|scatter|embedding"),
     ("elementwise", r"elementwise|vectorized|Elementwise|unrolled"),
