@@ -85,7 +85,26 @@ non-zero before the result lines:
      cores), then serving 4 prompts of 2048 tokens, 32 new tokens each;
  15. timing as in phases 6 and 10: flash at zamba2-7b's (4, 32, 4096, 112)
      with window 4096 and qwen2-moe-a2.7b's (8, 16, 2048, 128), the SSD
-     scan at zamba2-7b's (4, 4096, 112, 64), n 64.
+     scan at zamba2-7b's (4, 4096, 112, 64), n 64;
+ 16. the sixth slice's wiring, olmo-1b at full width, depth 2, f32: one
+     make_train_step("hier") step at world size 1 (NCCL) equals
+     registry.loss_fn and AdamW.update called directly (loss rtol 1e-5,
+     params rtol 5e-4 / atol 1e-5), with the flash kernel on and off; flash
+     on against off, and remat "full" and "dots" against remat off, on the
+     loss (rtol 1e-5) and gradient (rtol 5e-4 / atol 1e-5), with exact
+     flash launch counts (remat's recompute runs the forward again);
+ 17. the sixth slice's main path: full-width olmo-1b in bf16 trained through
+     launch/train.py::train with the hier step (reduce-scatter, AdamW on
+     the shards, all-gather) at world size 1, the flash kernel, batch 8 x
+     2048, 5 steps; losses finite, exactly 16 x 5 flash launches, all on
+     the tensor cores; step seconds, tokens/s and peak memory beside phase
+     5's pool step (the flash kernel at this (8, 16, 2048, 128) shape is
+     phase 15's qwen2-moe row);
+ 18. the port's examples/train_e2e.py at its default size (35,660,288
+     params, f32, 300 steps, the batch doubling at 100, the checkpoint
+     cycle at 150 through a DiskCheckpointer in a temporary directory):
+     the restored state is bit-equal to the saved one and the loss falls
+     by more than 0.5.
 
 The second-to-last line is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero without.
@@ -110,6 +129,7 @@ N_WORKERS = 4
 GLOBAL_BATCH = 8
 SEQ = 2048
 STEPS = 3
+TRAIN_STEPS = 5              # phase 17: launch/train.py with the hier step
 SCORE_EVALS = 3
 SERVE_REQUESTS = 4
 SERVE_NEW_TOKENS = 32
@@ -1132,6 +1152,117 @@ def run_family(cfg, device, n_params: int, batch_size: int, seq: int):
                 serve_peak=serve_peak)
 
 
+# ---------------------------------------------------------------------------
+# phases 16-18: the hier train step, launch/train.py, the train_e2e example
+# ---------------------------------------------------------------------------
+
+
+def check_train_step_wiring(cfg, device, batch_size: int, seq: int):
+    """Phase 16, ``cfg`` at full width, reduced depth, f32: one
+    ``make_train_step("hier")`` step at world size 1 against
+    ``registry.loss_fn`` and ``AdamW.update`` called directly (loss rtol
+    1e-5, updated params rtol 5e-4 / atol 1e-5), with the flash kernel on
+    and off; flash on against off, and remat "full" and "dots" against
+    remat off (flash on), on the loss (rtol 1e-5) and the gradient (rtol
+    5e-4 / atol 1e-5); the flash launches of each gradient (remat runs the
+    forward again)."""
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import process_group
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import make_local_mesh
+    from repro_torch.models import registry
+    from repro_torch.optim import AdamW
+    params = registry.init(0, cfg, device)
+    batch = T.from_numpy(make_loader(cfg, seq).next_batch(batch_size), device)
+    opt = AdamW(lr=3e-4)
+    grads = {}
+    with process_group(device):
+        mesh = make_local_mesh(device)
+        for flash in (False, True):
+            c = cfg.replace(use_flash_kernel=flash)
+            zero_counts()
+            loss, g = T.value_and_grad(
+                lambda p, b: registry.loss_fn(p, c, b))(params, batch)
+            want, _ = opt.update(g, opt.init(params), params)
+            step = make_train_step(c, mesh, strategy="hier", optimizer=opt)
+            got, state, step_loss = step(params, step.init_opt_state(params),
+                                         batch)
+            require(fa.LAUNCHES == 2 * c.n_layers * flash,
+                    f"flash {flash}: {fa.LAUNCHES} launches")
+            require(abs(float(step_loss) - float(loss))
+                    <= 1e-5 * abs(float(loss)),
+                    f"hier step loss {float(step_loss)!r} vs direct "
+                    f"{float(loss)!r} (rtol 1e-5)")
+            worst = max(require_close(a, b, 5e-4, 1e-5, "hier step params")
+                        for a, b in zip(T.leaves(got), T.leaves(want)))
+            n_split = sum(s is not None for s in step.shards)
+            log(f"  hier step (flash {'on' if flash else 'off'}): loss "
+                f"{float(step_loss)!r}, direct {float(loss)!r}; params max "
+                f"abs err {worst:.3e}; {n_split} of {len(step.shards)} leaves "
+                f"reduce-scattered, AdamW state step {state.step}")
+            grads[flash] = (float(loss), g)
+            del want, got, state, step
+    for name, c in (("flash on", None),
+                    ("remat full", cfg.replace(use_flash_kernel=True,
+                                               remat=True)),
+                    ("remat dots", cfg.replace(use_flash_kernel=True,
+                                               remat=True,
+                                               remat_policy="dots"))):
+        if c is None:
+            loss, g = grads[True]
+            ref_loss, ref_g = grads[False]
+        else:
+            zero_counts()
+            loss, g = T.value_and_grad(
+                lambda p, b: registry.loss_fn(p, c, b))(params, batch)
+            loss = float(loss)
+            require(fa.LAUNCHES == 2 * c.n_layers,
+                    f"{name}: {fa.LAUNCHES} flash launches, want "
+                    f"{2 * c.n_layers} (the forward and its recompute)")
+            ref_loss, ref_g = grads[True]
+        require(abs(loss - ref_loss) <= 1e-5 * abs(ref_loss),
+                f"{name}: loss {loss!r} vs {ref_loss!r} (rtol 1e-5)")
+        worst = max(require_close(a, b, 5e-4, 1e-5, f"{name} grads")
+                    for a, b in zip(T.leaves(g), T.leaves(ref_g)))
+        log(f"  {name} against {'flash off' if c is None else 'remat off'}: "
+            f"loss {loss!r} vs {ref_loss!r}; grads max abs err {worst:.3e}")
+        del g
+
+
+def run_hier_training(cfg, device, batch_size: int, seq: int, steps: int):
+    """Phase 17: ``launch/train.py::train`` with the ``hier`` step, seed-0
+    weights; returns (losses, step seconds, launches, routes, peak
+    bytes)."""
+    import torch
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    params, losses, step_s = train(cfg, steps=steps, batch=batch_size,
+                                   seq=seq, strategy="hier", log_every=1,
+                                   device=device)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches, routes = kernel_counts(), dict(fa.ROUTE_LAUNCHES)
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    for p in T.leaves(params):
+        require(bool(p.float().isfinite().all()), "non-finite parameters")
+    del params
+    torch.cuda.empty_cache()
+    return losses, step_s, launches, routes, peak
+
+
+def run_train_e2e(device):
+    """Phase 18: the port's train_e2e example at its default size."""
+    from repro_torch.examples import train_e2e
+    t0 = time.perf_counter()
+    losses = train_e2e.main(["--device", str(device)])
+    return losses, time.perf_counter() - t0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1308,6 +1439,49 @@ def main() -> int:
                      launches=zamba["score_launches"]["ssd_scan"],
                      cuda_cores_ms=cc_ms, **t)]
     log(f"  ssd_scan at {hyb.arch_id}'s shape: {ssd_rows[0]}")
+
+    log("[16] the hier train step's wiring at full width, depth 2, f32")
+    check_train_step_wiring(full.replace(n_layers=2, dtype=torch.float32),
+                            device, GLOBAL_BATCH, SEQ)
+    torch.cuda.empty_cache()
+
+    log(f"[17] slice 6: {cfg.arch_id} {cfg.n_layers} layers d_model "
+        f"{cfg.d_model} bf16 ({n_params} params), launch/train.py::train "
+        f"with the hier step at world size 1 (NCCL), batch {GLOBAL_BATCH} x "
+        f"{SEQ}, {TRAIN_STEPS} steps, AdamW (warmup_cosine), the flash "
+        "kernel, remat off")
+    h_losses, h_step_s, h_launches, h_routes, h_peak = run_hier_training(
+        cfg, device, GLOBAL_BATCH, SEQ, TRAIN_STEPS)
+    log(f"  losses {h_losses}")
+    log(f"  step seconds {h_step_s}; tokens/s "
+        f"{[tokens / t for t in h_step_s]}; peak memory {h_peak} bytes "
+        f"({h_peak / 2**30:.2f} GiB)")
+    log(f"  beside phase 5's Fig. 5 pool step at the same batch: steps "
+        f"2-{TRAIN_STEPS} median {statistics.median(h_step_s[1:])!r} s "
+        f"against {statistics.median(step_s)!r} s; peak {h_peak / 2**30:.2f} "
+        f"GiB against {peak / 2**30:.2f} GiB")
+    want = want_launches(flash=cfg.n_layers * TRAIN_STEPS)
+    log(f"  launches {h_launches}, expected {want}; flash routes {h_routes}")
+    require(h_launches == want, f"launch counts {h_launches} != {want}")
+    require(h_routes == {"wgmma": want["flash_attention"], "cuda_cores": 0},
+            f"hier training's flash routes {h_routes}: want all on wgmma")
+    olmo_shape = (GLOBAL_BATCH, cfg.n_heads, SEQ, cfg.resolved_head_dim)
+    require(flash_shapes[1][1] == olmo_shape, "the hier step's flash shape "
+            "is not the one timed in phase 15")
+    flash_rows.append(dict(
+        model=f"{cfg.arch_id} (hier train step)",
+        shape=list(olmo_shape), window=0,
+        launches=h_launches["flash_attention"],
+        max_abs_err=flash_shape_errs[moe_arch.arch_id],
+        **{k: flash_rows[1][k] for k in ("ms", "call_ms", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "bound_by")}))
+
+    log("[18] the port's train_e2e example at its default size")
+    e2e_losses, e2e_s = run_train_e2e(device)
+    log(f"  loss {e2e_losses[0]!r} -> min {min(e2e_losses)!r} over "
+        f"{len(e2e_losses)} steps in {e2e_s:.1f} s")
+    torch.cuda.empty_cache()
 
     kernels = [
         dict(name="aggregate_shards", route="cuda",

@@ -7,7 +7,7 @@ both packages.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +28,16 @@ def leaves(tree) -> List[Any]:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in leaves(tree[k])]
     return [tree]
+
+
+def leaves_with_path(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) pairs in ``leaves`` order; a path joins the dict keys
+    from the root with "/", as the reference's checkpointer and sharding
+    rules name a leaf ("blocks/attn/wq")."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in leaves_with_path(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -75,15 +85,24 @@ def to_numpy(tree):
     return tree_map(conv, tree)
 
 
-def grad(fn: Callable) -> Callable:
+def value_and_grad(fn: Callable) -> Callable:
     """``fn(params, *args) -> scalar`` becomes ``f(params, *args) ->
-    grads``, a tree like ``params`` (``jax.grad``). The leaves are
-    aliased, not copied."""
+    (value, grads)``, grads a tree like ``params`` (``jax.value_and_grad``),
+    from one forward. The leaves are aliased, not copied."""
     def f(params, *args):
         with torch.enable_grad():
             p = tree_map(lambda x: x.detach().requires_grad_(True), params)
             ls = leaves(p)
-            gs = torch.autograd.grad(fn(p, *args), ls, allow_unused=True)
-        return unflatten(params, [torch.zeros_like(x) if g is None else g
-                                  for x, g in zip(ls, gs)])
+            value = fn(p, *args)
+            gs = torch.autograd.grad(value, ls, allow_unused=True)
+        return value.detach(), unflatten(
+            params, [torch.zeros_like(x) if g is None else g
+                     for x, g in zip(ls, gs)])
     return f
+
+
+def grad(fn: Callable) -> Callable:
+    """``fn(params, *args) -> scalar`` becomes ``f(params, *args) ->
+    grads`` (``jax.grad``)."""
+    vg = value_and_grad(fn)
+    return lambda params, *args: vg(params, *args)[1]

@@ -132,19 +132,31 @@ def forward_full(params, cfg: ModelConfig, tokens, *, mamba_cache=None,
     ring caches stacked on the group axis or None). With
     ``collect_attn_kv`` > 0 each site's ring cache of that size is built
     for the decode that follows."""
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet")
     h = L.embed_tokens(params["embed"], tokens)
     bps = T.unbind_layers(params["blocks"], cfg.n_layers)
     caches = (T.unbind_layers(mamba_cache, cfg.n_layers)
               if mamba_cache is not None else [None] * cfg.n_layers)
+
+    def group(h, g_bps, g_caches):
+        ncs = []
+        for bp, c in zip(g_bps, g_caches):
+            h, nc = M.apply_mamba_block(bp, cfg, h, cache=c)
+            ncs.append(nc)
+        h, kv = _shared_block(params, cfg, h, collect_attn_kv)
+        return h, ncs, kv
+
+    body = T.remat_wrap(cfg, group)     # one group at a time, as the reference
+    per = cfg.attn_every
+    ng, _ = n_groups(cfg)
     new_m, rings = [], []
-    for i, (bp, c) in enumerate(zip(bps, caches)):
+    for g in range(ng):
+        h, ncs, kv = body(h, bps[g * per:(g + 1) * per],
+                          caches[g * per:(g + 1) * per])
+        new_m += ncs
+        rings.append(kv)
+    for bp, c in zip(bps[ng * per:], caches[ng * per:]):  # the remainder
         h, nc = M.apply_mamba_block(bp, cfg, h, cache=c)
         new_m.append(nc)
-        if (i + 1) % cfg.attn_every == 0:  # the remainder layers have none
-            h, kv = _shared_block(params, cfg, h, collect_attn_kv)
-            rings.append(kv)
     h = L.apply_norm(params["final_norm"], cfg, h)
     logits = L.unembed(params["embed"], cfg, h)
     new_mcache = None

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
-from repro_torch.models.transformer import run_layers, stack_init
+from repro_torch.models.transformer import remat_wrap, run_layers, stack_init
 
 # ---------------------------------------------------------------------------
 # causal depthwise conv1d
@@ -217,16 +217,14 @@ def init(normal, cfg: ModelConfig, device):
 def forward(params, cfg: ModelConfig, tokens, *, cache=None, decode=False):
     """Returns (logits, new cache stacked on the layer axis, or None when
     no cache was given)."""
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet")
-
     def apply(h, bp, c):
         if decode:
             return apply_mamba_decode(bp, cfg, h, c)
         return apply_mamba_block(bp, cfg, h, cache=c)
 
     h = L.embed_tokens(params["embed"], tokens)
-    h, new_cache = run_layers(h, params["blocks"], cache, cfg.n_layers, apply)
+    h, new_cache = run_layers(h, params["blocks"], cache, cfg.n_layers,
+                              remat_wrap(cfg, apply))
     h = L.apply_norm(params["final_norm"], cfg, h)
     return L.unembed(params["embed"], cfg, h), new_cache
 

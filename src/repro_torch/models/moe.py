@@ -174,14 +174,13 @@ def init(normal, cfg: ModelConfig, device):
 def forward(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,
             cache_index=None):
     """Returns (logits, new cache or None, the summed aux loss)."""
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet")
     h = L.embed_tokens(params["embed"], tokens)
     aux = []
+    body = T.remat_wrap(cfg, lambda h, bp, c: apply_block(
+        bp, cfg, h, positions=positions, cache=c, cache_index=cache_index))
 
     def apply(h, bp, c):
-        h, nc, a = apply_block(bp, cfg, h, positions=positions, cache=c,
-                               cache_index=cache_index)
+        h, nc, a = body(h, bp, c)
         aux.append(a)
         return h, nc
 

@@ -12,10 +12,41 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import tree as T
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Save the outputs of matmuls without batch dims (the projections; a
+    3-D activation times a 2-D weight reaches aten as ``mm``), recompute
+    the rest: jax's ``dots_with_no_batch_dims_saveable``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return ckpt.create_selective_checkpoint_contexts(_save_dots)
+
+
+def remat_wrap(cfg: ModelConfig, body):
+    """With ``cfg.remat``, ``body(*args)`` keeps none of its activations
+    for the backward and recomputes them there (``remat_policy`` "full"),
+    or keeps only its projections' outputs ("dots"), as the reference's
+    ``jax.checkpoint``. A flash-kernel forward inside ``body`` runs again
+    in the recompute."""
+    if not cfg.remat:
+        return body
+    context_fn = (_dots_contexts if cfg.remat_policy == "dots"
+                  else ckpt.noop_context_fn)
+
+    def wrapped(*args):
+        return ckpt.checkpoint(body, *args, use_reentrant=False,
+                               context_fn=context_fn)
+    return wrapped
 
 
 def init_block(normal, cfg: ModelConfig, device):
@@ -84,12 +115,9 @@ def run_layers(h, blocks, cache, n: int, apply):
 
 def _run_blocks(params, cfg: ModelConfig, h, *, positions=None, cache=None,
                 cache_index=None):
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet")
-    return run_layers(h, params["blocks"], cache, cfg.n_layers,
-                      lambda h, bp, c: apply_block(
-                          bp, cfg, h, positions=positions, cache=c,
-                          cache_index=cache_index))
+    body = remat_wrap(cfg, lambda h, bp, c: apply_block(
+        bp, cfg, h, positions=positions, cache=c, cache_index=cache_index))
+    return run_layers(h, params["blocks"], cache, cfg.n_layers, body)
 
 
 def forward(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,

@@ -13,6 +13,7 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import tree as T
 
@@ -39,13 +40,29 @@ class AdamW:
         return AdamWState(step=0, mu=T.tree_map(zeros, params),
                           nu=T.tree_map(zeros, params))
 
-    def update(self, grads, state: AdamWState, params):
-        """-> (new params, state); ``state``'s moments are updated in place."""
+    def update(self, grads, state: AdamWState, params, *, group=None,
+               sharded=None):
+        """-> (new params, state); ``state``'s moments are updated in place.
+
+        Under sharded state (``launch/steps.py``'s ``hier``), the leaves
+        that ``sharded`` (a tree of bools like ``grads``) flags hold this
+        rank's shard of a tensor split over the process group ``group``;
+        the clip's sum of their squares is summed over the group, so every
+        rank clips by the global norm. The other leaves are replicated and
+        counted once."""
         step = state.step + 1
         scale = None
         if self.grad_clip:
-            sq = sum(torch.sum(torch.square(g.float())) for g in T.leaves(grads))
-            gnorm = torch.sqrt(sq)
+            sq = [torch.sum(torch.square(g.float())) for g in T.leaves(grads)]
+            if group is None:
+                total = sum(sq)
+            else:
+                flags = T.leaves(sharded)
+                total = sum((x for x, f in zip(sq, flags) if f),
+                            torch.zeros_like(sq[0]))
+                dist.all_reduce(total, group=group)
+                total = total + sum(x for x, f in zip(sq, flags) if not f)
+            gnorm = torch.sqrt(total)
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         b1, b2 = self.b1, self.b2
         bc1 = 1 - b1 ** float(step)

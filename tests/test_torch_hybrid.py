@@ -233,3 +233,19 @@ def test_smoke_holds_each_kernel_call_against_its_plain_version(
             hy.n_groups(cfg)[0]
         assert all(r == 0.0 for _, r in calls)   # the CPU runs plain
     assert (ops.flash_attention, ops.ssd_scan) == before   # restored
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_matches_no_remat(policy):
+    """Remat on (per group of attn_every Mamba2 layers and the shared
+    block, as the reference; the remainder layers without) gives the loss
+    and grads of remat off."""
+    _, cfg, _, params = _models()
+    batch = T.from_numpy(reduced_batch(cfg, 2, 32), "cpu")
+    vg = lambda c: T.value_and_grad(  # noqa: E731
+        lambda p, b: registry.loss_fn(p, c, b))(params, batch)
+    l0, g0 = vg(cfg)
+    l1, g1 = vg(cfg.replace(remat=True, remat_policy=policy))
+    assert float(l1) == float(l0)
+    for a, b in zip(T.leaves(g1), T.leaves(g0)):
+        assert torch.equal(a, b)

@@ -266,7 +266,29 @@ def test_ssd_kernel_refuses_requires_grad_before_launch():
 
 
 def test_remat_is_refused():
+    """Remat was refused before it was ported (the name is kept): now the
+    cached path (prefill, no grad) with remat on returns the logits and
+    cache of remat off, under both policies."""
     _, cfg, _, params = _models()
-    toks = torch.zeros(1, 8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="remat"):
-        m.forward(params, cfg.replace(remat=True), toks)
+    toks = torch.from_numpy(reduced_batch(cfg, 2, 32)["tokens"])
+    with torch.no_grad():
+        want = m.prefill(params, cfg, toks)
+        for policy in ("full", "dots"):
+            got = m.prefill(params, cfg.replace(remat=True,
+                                                remat_policy=policy), toks)
+            for a, b in zip([got[0]] + T.leaves(got[1]),
+                            [want[0]] + T.leaves(want[1])):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_matches_no_remat(policy):
+    _, cfg, _, params = _models()
+    batch = T.from_numpy(reduced_batch(cfg, 2, 32), "cpu")
+    vg = lambda c: T.value_and_grad(  # noqa: E731
+        lambda p, b: registry.loss_fn(p, c, b))(params, batch)
+    l0, g0 = vg(cfg)
+    l1, g1 = vg(cfg.replace(remat=True, remat_policy=policy))
+    assert float(l1) == float(l0)
+    for a, b in zip(T.leaves(g1), T.leaves(g0)):
+        assert torch.equal(a, b)

@@ -249,3 +249,51 @@ def test_params_bridge_roundtrip_keeps_keys_shapes_and_bits():
     back = registry.params_to_numpy(params)
     for a, b in zip(jax.tree.leaves(jparams), T.leaves(back)):
         np.testing.assert_array_equal(np.asarray(a, np.float32), b)
+
+
+def _remat_parity(cfg, params, batch, policy):
+    """Loss and grads with remat (``policy``) on are those with it off."""
+    vg = lambda c: T.value_and_grad(  # noqa: E731
+        lambda p, b: registry.loss_fn(p, c, b))(params, batch)
+    l0, g0 = vg(cfg)
+    l1, g1 = vg(cfg.replace(remat=True, remat_policy=policy))
+    assert float(l1) == float(l0)
+    for a, b in zip(T.leaves(g1), T.leaves(g0)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("flash", [False, True])
+def test_remat_matches_no_remat(policy, flash):
+    _, cfg, _, params = _both("olmo-1b", seed=1)
+    _remat_parity(cfg.replace(use_flash_kernel=flash), params,
+                  T.from_numpy(reduced_batch(cfg, 2, 32), "cpu"), policy)
+
+
+def test_remat_dots_keeps_the_projections():
+    """The backward of remat "full" runs the forward's matmuls again;
+    "dots" keeps their outputs (jax's dots_with_no_batch_dims_saveable),
+    so its backward runs no more of them than remat off."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountMM(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.mm.default:
+                CountMM.n += 1
+            return func(*args, **(kwargs or {}))
+
+    _, cfg, _, params = _both("olmo-1b", seed=1)
+    batch = T.from_numpy(reduced_batch(cfg, 2, 32), "cpu")
+    counts = {}
+    for name, c in (("off", cfg), ("full", cfg.replace(remat=True)),
+                    ("dots", cfg.replace(remat=True, remat_policy="dots"))):
+        with torch.enable_grad():
+            p = T.tree_map(lambda x: x.detach().requires_grad_(True), params)
+            loss = registry.loss_fn(p, c, batch)
+            CountMM.n = 0
+            with CountMM():
+                torch.autograd.grad(loss, T.leaves(p))
+            counts[name] = CountMM.n
+    assert counts["dots"] == counts["off"] < counts["full"], counts

@@ -186,3 +186,19 @@ def test_init_keys_and_shapes_match_reference():
         assert tuple(a.shape) == tuple(b.shape)
     assert jax.tree.structure(jax.tree.map(np.asarray, jparams)) == \
         jax.tree.structure(T.tree_map(lambda x: 0, mine))
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("arch", MOE)
+def test_remat_matches_no_remat(arch, policy):
+    """Remat on (per layer, the aux loss summed outside the recompute)
+    gives the loss and grads of remat off."""
+    _, cfg, _, params = _models(arch)
+    batch = T.from_numpy(reduced_batch(cfg, 2, 32), "cpu")
+    vg = lambda c: T.value_and_grad(  # noqa: E731
+        lambda p, b: registry.loss_fn(p, c, b))(params, batch)
+    l0, g0 = vg(cfg)
+    l1, g1 = vg(cfg.replace(remat=True, remat_policy=policy))
+    assert float(l1) == float(l0)
+    for a, b in zip(T.leaves(g1), T.leaves(g0)):
+        assert torch.equal(a, b)

@@ -109,7 +109,12 @@ SLICE = ["repro_torch", "repro_torch.configs", "repro_torch.models.base",
          "repro_torch.core.rng", "repro_torch.core.comm",
          "repro_torch.core.compression", "repro_torch.core.tree",
          "repro_torch.serverless.stores", "repro_torch.serverless.worker",
-         "repro_torch.data.pipeline"]
+         "repro_torch.data.pipeline", "repro_torch.models.hybrid",
+         "repro_torch.models.moe", "repro_torch.launch.mesh",
+         "repro_torch.core.hier_sync", "repro_torch.core.elastic",
+         "repro_torch.distributed.sharding", "repro_torch.launch.steps",
+         "repro_torch.launch.train", "repro_torch.checkpoint.checkpointer",
+         "repro_torch.examples.train_e2e"]
 
 
 def test_port_loads_neither_jax_nor_the_reference():
