@@ -104,7 +104,32 @@ non-zero before the result lines:
      params, f32, 300 steps, the batch doubling at 100, the checkpoint
      cycle at 150 through a DiskCheckpointer in a temporary directory):
      the restored state is bit-equal to the saved one and the loss falls
-     by more than 0.5.
+     by more than 0.5;
+ 19. the seventh slice's flash shapes against the plain version (phase 11's
+     check_flash_shapes, bf16): the decoders' self-attention of
+     seamless-m4t-medium, (8, 16, 2048, 64), and of llama-3.2-vision-90b,
+     (4, 64, 2048, 128), causal, on the model's views;
+ 20. vlm and audio wiring at full width, reduced depth, f32: seamless with
+     2 encoder and 2 decoder layers, llama-vision at depth 5 (one group of
+     4 self layers and a cross layer, its tanh gates opened to XATTN_GATE:
+     they are zero at init, which would hide the cross layer); the loss
+     with the flash kernel on against off (rtol 1e-5), every flash call
+     held against its plain version on the model's inputs, exact launch
+     counts (decoder self-attention only: never the encoder or the cross
+     layers); prefill's last-position logits against the loss forward's
+     (rtol 1e-4 / atol 1e-4); teacher-forced decode after a half prefill
+     against prefill, 3 steps (rtol 2e-2 / atol 2e-3,
+     tests/test_arch_smoke.py:57-74), with no flash launch;
+ 21. seamless-m4t-medium at full width (nothing cut) and
+     llama-3.2-vision-90b at full width cut to VISION_DEPTH layers, bf16,
+     seed-0 weights, the flash kernel: 3 scoring evaluations with numpy-
+     seeded modality inputs (seamless 8 x 2048 tokens and 512 audio
+     frames, exactly 12 x 3 flash launches; llama 4 x 2048 tokens and 1600
+     image tokens, exactly 16 x 3), every flash call of the first held
+     against its plain version; then serving 4 prompts of 2048, 32 new
+     tokens, through ServingEngine and its zero modality stubs (no flash
+     launch: prefill attends through the KV cache); peaks under 80 GB;
+ 22. timing as in phase 6: flash at the two shapes of phase 19.
 
 The second-to-last line is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero without.
@@ -165,6 +190,15 @@ HYBRID_FLASH_LOGITS_REL_NORM = 1e-2
 # 4k context; the 16,384 tokens an evaluation of phase 9) and served
 # 4 prompts of 4096; qwen2-moe-a2.7b on phase 9's 8 x 2048 and 4 x 2048
 HYBRID_BATCH, HYBRID_SEQ = 4, 4096
+# the seventh slice's cells: seamless-m4t-medium scored on phase 9's
+# 8 x 2048 tokens, llama-3.2-vision-90b on 4 x 2048 at 20 of its 100
+# layers (4 groups of 4 self layers and a cross layer: 19.2 B params,
+# 38.4 GB in bf16; the full model's 175 GB fit no card); both served
+# 4 prompts of 2048
+VISION_DEPTH = 20
+VISION_BATCH = 4
+# the vlm wiring opens the cross layers' tanh gates, which are zero at init
+XATTN_GATE = 0.5
 
 
 def log(*a):
@@ -721,22 +755,29 @@ def zero_counts():
             routes[route] = 0
 
 
-def run_scoring(cfg, params, device, batch_size: int, seq: int, evals: int):
-    """registry.loss_fn through the SSD kernel; returns (losses, seconds,
-    launches)."""
+def run_scoring(cfg, params, device, batch_size: int, seq: int, evals: int,
+                held=None):
+    """registry.loss_fn through the model's kernels, the vlm and audio
+    batches with modality_inputs; returns (losses, seconds, launches).
+    With a list ``held`` the first evaluation runs under
+    held_against_plain(held)."""
     import torch
     from repro_torch.core import tree as T
     from repro_torch.models import registry
     loader = make_loader(cfg, seq)
     batches = [T.from_numpy(loader.next_batch(batch_size), device)
                for _ in range(evals)]
+    for i, batch in enumerate(batches):
+        batch.update(modality_inputs(cfg, batch_size, seq, device, seed=i))
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     sync()
     zero_counts()
     losses, secs = [], []
-    for batch in batches:
+    for i, batch in enumerate(batches):
+        hold = held_against_plain(held) if held is not None and i == 0 \
+            else contextlib.nullcontext()
         t0 = time.perf_counter()
-        with torch.no_grad():
+        with torch.no_grad(), hold:
             loss = registry.loss_fn(params, cfg, batch)
         sync()
         secs.append(time.perf_counter() - t0)
@@ -954,10 +995,26 @@ def check_ssd_shape(device, shape, gen, name: str) -> float:
 
 def attention_sites(cfg) -> int:
     """Flash launches in one forward without a cache: every layer of the
-    attention families, one per shared-block site of the hybrid."""
+    dense and MoE families, every decoder layer of the audio enc-dec, the
+    self layers of the vlm, one per shared-block site of the hybrid."""
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.attn_every
+    if cfg.family == "vlm":
+        return cfg.n_layers - cfg.n_layers // cfg.cross_attn_every
     return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def modality_inputs(cfg, batch_size: int, seq: int, device, seed: int = 0):
+    """The vlm's image embeddings or the audio model's frame embeddings at
+    configs.batch_extras' shapes, N(0, 1) from a numpy seed, in cfg.dtype
+    (an empty dict for the other families)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import batch_extras
+    rng = np.random.RandomState(seed)
+    return {k: torch.from_numpy(rng.randn(*t.shape).astype(np.float32))
+            .to(device=device, dtype=cfg.dtype)
+            for k, t in batch_extras(cfg, batch_size, seq).items()}
 
 
 def want_launches(flash: int = 0, ssd: int = 0) -> dict:
@@ -1021,14 +1078,20 @@ def check_family_wiring(cfg, device, batch_size: int, seq: int, kernels,
     inputs (held_against_plain). With ``flash_logits`` also the last
     position's logits with the flash kernel alone on against the plain
     path, within HYBRID_FLASH_LOGITS_REL_NORM. Each kernel's launches in
-    the kernel loss are counted, on the route the dtype takes."""
+    the kernel loss are counted, on the route the dtype takes. The vlm
+    and audio batches carry modality_inputs, and the vlm's gates are
+    opened to XATTN_GATE. Returns (params, batch)."""
     import torch
     from repro_torch.core import tree as T
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import registry
     params = registry.init(0, cfg, device)
+    if cfg.family == "vlm":
+        for g in ("gate_attn", "gate_mlp"):
+            params["cross"][g].fill_(XATTN_GATE)
     batch = T.from_numpy(make_loader(cfg, seq).next_batch(batch_size), device)
+    batch.update(modality_inputs(cfg, batch_size, seq, device))
     on = cfg.replace(**{f"use_{k}_kernel": True for k in kernels})
     calls = []
     with torch.no_grad():
@@ -1078,13 +1141,68 @@ def check_family_wiring(cfg, device, batch_size: int, seq: int, kernels,
         require(rel < HYBRID_FLASH_LOGITS_REL_NORM, f"{cfg.arch_id} wiring "
                 f"logits: the flash path is {rel:.3e} from the plain path, "
                 f"limit {HYBRID_FLASH_LOGITS_REL_NORM}")
+    return params, batch
 
 
-def run_family(cfg, device, n_params: int, batch_size: int, seq: int):
-    """One full-width model of the fifth slice through the port's entry
-    points: SCORE_EVALS scoring evaluations on batch_size x seq tokens,
-    then ServingEngine on SERVE_REQUESTS prompts of seq tokens. Checks the
-    parameter count and every launch count; returns a summary."""
+def check_cross_decode(cfg, params, batch):
+    """Phase 20's cache paths of a vlm or audio model (f32): prefill's
+    last-position logits against the loss forward's (the flash kernel on,
+    no cache; rtol 1e-4 / atol 1e-4, as phase 8), and teacher-forced
+    decode after a half prefill against prefill, 3 steps (rtol 2e-2 /
+    atol 2e-3, tests/test_arch_smoke.py:57-74). Neither prefill nor decode
+    launches the flash kernel: both attend through the KV cache."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import encdec, registry, vlm
+    on = cfg.replace(use_flash_kernel=True)
+    toks = batch["tokens"]
+    seq = toks.shape[1]
+    half = seq // 2
+    with torch.no_grad():
+        if cfg.family == "vlm":
+            ikv = vlm.image_kv_from_embeds(params, on, batch["image_embeds"])
+            fwd = vlm.forward(params, on, toks, ikv)[0][:, -1]
+        else:
+            enc = encdec.encode(params, on, batch["audio_frames"])
+            fwd = encdec.decode_stack(params, on, toks,
+                                      encdec.cross_kv(params, on, enc))[0]
+            fwd = fwd[:, -1]
+        zero_counts()
+        full = registry.prefill(params, on, batch, max_seq=seq)[0]
+        last, want = full[:, -1].clone(), full[:, half:half + 3].clone()
+        del full
+        _, cache = registry.prefill(params, on,
+                                    dict(batch, tokens=toks[:, :half]),
+                                    max_seq=seq)
+        steps = []
+        for i, t in enumerate(range(half, half + 3)):
+            logits, cache = registry.decode_step(params, on, cache, t,
+                                                 toks[:, t:t + 1])
+            steps.append((logits[:, 0], want[:, i]))
+        launches = fa.LAUNCHES
+    log(f"  {cfg.arch_id} cache paths: prefill vs loss forward, last "
+        f"position, max abs err {max_err(last, fwd):.3e} (rtol 1e-4 / atol "
+        f"1e-4); decode after a prefill of {half} vs prefill at positions "
+        f"{half}..{half + 2}: max abs err "
+        f"{', '.join(f'{max_err(g, w):.3e}' for g, w in steps)} (rtol 2e-2 "
+        f"/ atol 2e-3); flash launches {launches}")
+    require_close(last, fwd, 1e-4, 1e-4, f"{cfg.arch_id} prefill vs loss "
+                  "forward")
+    for i, (g, w) in enumerate(steps):
+        require_close(g, w, 2e-2, 2e-3, f"{cfg.arch_id} decode at "
+                      f"{half + i} vs prefill")
+    require(launches == 0, f"{launches} flash launches in prefill and "
+            "decode, want 0")
+
+
+def run_family(cfg, device, n_params: int, batch_size: int, seq: int,
+               hold_first: bool = False):
+    """One full-width model through the port's entry points: SCORE_EVALS
+    scoring evaluations on batch_size x seq tokens, then ServingEngine on
+    SERVE_REQUESTS prompts of seq tokens. Checks the parameter count,
+    every launch count and the peaks (under 80 GB); with ``hold_first``
+    every kernel call of the first evaluation is held against its plain
+    version (held_against_plain). Returns a summary."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
@@ -1095,17 +1213,27 @@ def run_family(cfg, device, n_params: int, batch_size: int, seq: int):
     params = registry.init(0, cfg, device)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = [] if hold_first else None
     losses, secs, score_l = run_scoring(cfg, params, device, batch_size, seq,
-                                        SCORE_EVALS)
+                                        SCORE_EVALS, held=held)
     score_peak = torch.cuda.max_memory_allocated()
     tokens = batch_size * seq
     log(f"  scoring: {SCORE_EVALS} evaluations of loss_fn on {batch_size} x "
         f"{seq} tokens: losses {losses}")
     log(f"  scoring seconds {secs}; tokens/s {[tokens / t for t in secs]}; "
-        f"peak memory {score_peak} bytes ({score_peak / 2**30:.2f} GiB)")
+        f"peak memory {score_peak} bytes ({score_peak / 2**30:.2f} GiB)"
+        + ("; the first evaluation also ran each kernel's plain version"
+           if hold_first else ""))
     want = want_launches(
         flash=attention_sites(cfg) * SCORE_EVALS if "flash" in flags else 0,
         ssd=cfg.n_layers * SCORE_EVALS if "ssd" in flags else 0)
+    if hold_first:
+        per_eval = (want["flash_attention"] + want["ssd_scan"]) // SCORE_EVALS
+        log(f"  the first evaluation's {len(held)} kernel calls held against "
+            f"their plain versions: largest relative norm err "
+            f"{max(r for _, r in held):.3e}")
+        require(len(held) == per_eval,
+                f"{len(held)} kernel calls held, want {per_eval}")
     routes = {"flash": dict(fa.ROUTE_LAUNCHES),
               "ssd": dict(ssd.ROUTE_LAUNCHES)}
     log(f"  scoring launches {score_l}, expected {want}; routes {routes}")
@@ -1136,6 +1264,7 @@ def run_family(cfg, device, n_params: int, batch_size: int, seq: int):
         f"request's tokens {out[0].tokens.tolist()}")
     require(serve_l == want_serve,
             f"serving launch counts {serve_l} != {want_serve}")
+    require(max(score_peak, serve_peak) < 80e9, "a peak of 80 GB or more")
     if cfg.family == "hybrid":
         ring = hybrid.ring_size(cfg, seq + SERVE_NEW_TOKENS)
         require(ring == cfg.sliding_window and seq % ring == 0,
@@ -1482,6 +1611,54 @@ def main() -> int:
     log(f"  loss {e2e_losses[0]!r} -> min {min(e2e_losses)!r} over "
         f"{len(e2e_losses)} steps in {e2e_s:.1f} s")
     torch.cuda.empty_cache()
+
+    audio = ARCHS["seamless-m4t-medium"]
+    vision = ARCHS["llama-3.2-vision-90b"].replace(n_layers=VISION_DEPTH)
+    xattn = {audio.arch_id: (audio, GLOBAL_BATCH, 878_309_376),
+             vision.arch_id: (vision, VISION_BATCH, 19_224_928_264)}
+    xattn_shapes = [(c.arch_id, (b, c.n_heads, SEQ, c.resolved_head_dim), 0)
+                    for c, b, _ in xattn.values()]
+    log("[19] the seventh slice's flash shapes vs plain versions")
+    xattn_errs = check_flash_shapes(device, xattn_shapes, gen)
+    torch.cuda.empty_cache()
+
+    log("[20] vlm and audio wiring at full width, reduced depth, f32")
+    for c in (audio.replace(n_layers=2, n_encoder_layers=2),
+              vision.replace(n_layers=vision.cross_attn_every)):
+        c = c.replace(dtype=torch.float32)
+        params, batch = check_family_wiring(c, device, SERVE_REQUESTS, SEQ,
+                                            ("flash",), 1e-5)
+        check_cross_decode(c, params, batch)
+        del params, batch
+        torch.cuda.empty_cache()
+
+    xruns = {}
+    for c, b, n in xattn.values():
+        c = c.replace(use_flash_kernel=True)
+        cut = "nothing cut" if c.arch_id == audio.arch_id else (
+            f"depth cut from 100 to {c.n_layers} layers (the full model's "
+            f"{registry.param_count(ARCHS[c.arch_id])} params need 175 GB in "
+            "bf16, more than the card holds)")
+        log(f"[21] slice 7: {c.arch_id} ({c.family}) {c.n_layers} decoder "
+            f"layers" + (f" + {c.n_encoder_layers} encoder layers"
+                         if c.n_encoder_layers else
+                         f" ({c.n_layers // c.cross_attn_every} of them "
+                         "cross layers)")
+            + f", d_model {c.d_model}, {c.n_heads} heads of "
+            f"{c.resolved_head_dim} ({c.n_kv_heads} KV), d_ff {c.d_ff}, vocab "
+            f"{c.vocab_size}, {n} params; bf16, seed 0, the flash kernel; "
+            f"{cut}")
+        xruns[c.arch_id] = run_family(c, device, n, b, SEQ, hold_first=True)
+
+    log("[22] timing of the seventh slice's flash shapes (as in phase 6)")
+    for arch, shape, window in xattn_shapes:
+        t = time_flash(device, shape, gen, window=window)
+        flash_rows.append(dict(
+            model=arch, shape=list(shape), window=window,
+            launches=(xruns[arch]["score_launches"]["flash_attention"]
+                      + xruns[arch]["serve_launches"]["flash_attention"]),
+            max_abs_err=xattn_errs[arch], **t))
+        log(f"  flash_attention at {arch}'s shape: {flash_rows[-1]}")
 
     kernels = [
         dict(name="aggregate_shards", route="cuda",

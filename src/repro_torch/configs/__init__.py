@@ -1,5 +1,6 @@
 """Architecture registry: the 10 assigned architectures, the 4 input
-shapes and the reduced (smoke-test) variants.
+shapes, the reduced (smoke-test) variants and the modality stubs'
+shapes (``batch_extras``, meta-device tensors: nothing is allocated).
 
 ``reduced_batch`` draws its tokens from a numpy seed, so both packages can
 be fed the same batch.
@@ -40,6 +41,25 @@ def pairs():
         for s in INPUT_SHAPES:
             if supports(a, s):
                 yield a, s
+
+
+def n_frames_for(cfg: ModelConfig, seq_len: int) -> int:
+    return max(seq_len // 4, 16)
+
+
+def batch_extras(cfg: ModelConfig, batch: int, seq_len: int) -> Dict:
+    """Modality-frontend stubs as meta-device tensors of the shapes and
+    dtype the models take: vlm's patch embeddings, audio's frame
+    embeddings."""
+    def meta(*shape):
+        return torch.empty(shape, dtype=cfg.dtype, device="meta")
+    out = {}
+    if cfg.family == "vlm":
+        out["image_embeds"] = meta(batch, cfg.n_image_tokens, cfg.d_vision)
+    if cfg.family == "audio":
+        out["audio_frames"] = meta(batch, n_frames_for(cfg, seq_len),
+                                   cfg.d_audio)
+    return out
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

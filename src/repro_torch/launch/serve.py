@@ -1,6 +1,9 @@
 """Serving launcher: batched prefill + decode with a KV/SSM cache; port of
-the JAX package's ``launch/serve.py``, running one batch through
-``serving.ServingEngine``.
+the JAX package's ``launch/serve.py`` and its loop: ``reduced_batch``'s
+prompts (and, for vlm and audio, its image or audio embeddings) through
+``registry.prefill`` (the models cast the embeddings to ``cfg.dtype``),
+then greedy ``registry.decode_step``: the engine's loop, on
+``reduced_batch``'s modality inputs where the engine feeds zero stubs.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         --reduced --requests 4 --prompt-len 32 --gen 16 [--device cpu]
@@ -11,24 +14,45 @@ phases are timed up to ``torch.cuda.synchronize()``.
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import ARCHS, reduced, reduced_batch
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.core import tree as T
+from repro_torch.models import registry
 
 
+@torch.no_grad()
 def serve(cfg, *, n_requests: int, prompt_len: int, gen: int, seed: int = 0,
           device="cuda"):
     """Returns (tokens (n_requests, gen) int32, prefill seconds, decode
     seconds)."""
-    engine = ServingEngine(cfg, seed=seed, device=device)
-    prompts = reduced_batch(cfg, n_requests, prompt_len, seed=seed)["tokens"]
-    out = engine.serve_batch([Request(i, p, gen)
-                              for i, p in enumerate(prompts)])
-    stats = engine.last_stats
-    return (np.stack([c.tokens for c in out]), stats["prefill_s"],
-            stats["decode_s"])
+    dev = T.resolve_device(device)
+    params = registry.init(seed, cfg, dev)
+    batch = T.from_numpy(reduced_batch(cfg, n_requests, prompt_len,
+                                       seed=seed), dev)
+    max_seq = prompt_len + gen
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    t0 = time.perf_counter()
+    logits, cache = registry.prefill(params, cfg, batch, max_seq=max_seq)
+    tok = torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1)
+    sync()
+    t_prefill = time.perf_counter() - t0
+
+    out = [tok]
+    t0 = time.perf_counter()
+    for t in range(gen - 1):
+        logits, cache = registry.decode_step(params, cfg, cache,
+                                             prompt_len + t, tok)
+        tok = torch.argmax(logits[:, :, :cfg.vocab_size], dim=-1)
+        out.append(tok)
+    sync()
+    t_decode = time.perf_counter() - t0
+    tokens = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+    return tokens, t_prefill, t_decode
 
 
 def main(argv=None):

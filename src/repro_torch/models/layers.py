@@ -218,6 +218,30 @@ def apply_attention(params, cfg: ModelConfig, x, *, positions=None,
     return out, new_cache
 
 
+def stacked_kv(attn, cfg: ModelConfig, memory):
+    """Cross-attention keys and values of ``memory`` (b, m, d_model) for
+    every layer of a stacked attention's wk / wv: {"k", "v"}, each
+    (L, b, m, kv, hd). Computed once; decode reads them from its cache."""
+    b, m, _ = memory.shape
+    shape = (b, m, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {name: torch.stack([(memory @ w).reshape(shape)
+                               for w in torch.unbind(attn[key], 0)])
+            for name, key in (("k", "wk"), ("v", "wv"))}
+
+
+def cross_attention(attn, cfg: ModelConfig, x, kv):
+    """x's queries against precomputed keys and values ``kv`` ({"k", "v"},
+    (b, m, kv, hd)): no rope, no mask, never the flash kernel (it is
+    causal only). Returns the output projection, (b, s, d_model)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ attn["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = _repeat_kv(kv["k"], cfg.n_heads // cfg.n_kv_heads)
+    v = _repeat_kv(kv["v"], cfg.n_heads // cfg.n_kv_heads)
+    o = blockwise_attention(q, k, v, causal=False)
+    return o.reshape(b, s, cfg.n_heads * hd) @ attn["wo"]
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),

@@ -1,37 +1,37 @@
 """Family registry: one API over the architecture families (port of the JAX
-package's ``models/registry.py``; the dense, moe, ssm and hybrid families
-so far).
+package's ``models/registry.py``).
 
     init(seed, cfg, device)        -> params
     loss_fn(params, cfg, batch)    -> scalar loss
     prefill(params, cfg, batch)    -> (logits, cache)
     decode_step(params, cfg, cache, pos, tokens) -> (logits, cache)
-    init_decode_cache(params, cfg, batch, max_seq) -> an empty cache
+    init_decode_cache(params, cfg, batch, max_seq, batch_extras) -> a cache
 
 plus ``param_count`` (on the meta device: nothing is allocated) and the
 weight bridge to the reference, ``params_from_numpy``/``params_to_numpy``.
+``batch`` is a dict: always {"tokens", "labels"}; plus "image_embeds" for
+vlm and "audio_frames" for the audio enc-dec.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import tree as T
-from repro_torch.models import hybrid, mamba2, moe, transformer
+from repro_torch.models import encdec, hybrid, mamba2, moe, transformer, vlm
 from repro_torch.models.base import ModelConfig
 
-_FAMILIES = {"dense": transformer, "moe": moe, "ssm": mamba2,
-             "hybrid": hybrid}
-
-# the ROADMAP item that ports each family not yet in the port
-_PENDING = {"vlm": "A14", "audio": "A14"}
+_FAMILIES = {
+    "dense": transformer,
+    "moe": moe,
+    "ssm": mamba2,
+    "hybrid": hybrid,
+    "vlm": vlm,
+    "audio": encdec,
+}
 
 
 def family_module(cfg: ModelConfig):
-    if cfg.family in _FAMILIES:
-        return _FAMILIES[cfg.family]
-    raise NotImplementedError(
-        f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet "
-        f"(ROADMAP {_PENDING.get(cfg.family, '?')})")
+    return _FAMILIES[cfg.family]
 
 
 def init(seed: int, cfg: ModelConfig, device="cuda"):
@@ -54,8 +54,14 @@ def loss_fn(params, cfg: ModelConfig, batch):
 
 
 def prefill(params, cfg: ModelConfig, batch, max_seq=None):
-    return family_module(cfg).prefill(params, cfg, batch["tokens"],
-                                      max_seq=max_seq)
+    mod = family_module(cfg)
+    if cfg.family == "vlm":
+        return mod.prefill(params, cfg, batch["tokens"], batch["image_embeds"],
+                           max_seq=max_seq)
+    if cfg.family == "audio":
+        return mod.prefill(params, cfg, batch["tokens"], batch["audio_frames"],
+                           max_seq=max_seq)
+    return mod.prefill(params, cfg, batch["tokens"], max_seq=max_seq)
 
 
 def decode_step(params, cfg: ModelConfig, cache, pos, tokens):
@@ -65,12 +71,21 @@ def decode_step(params, cfg: ModelConfig, cache, pos, tokens):
 def init_decode_cache(params, cfg: ModelConfig, batch: int, max_seq: int,
                       batch_extras=None):
     """An empty cache for decoding without a prefill, on the params'
-    device. The cross-attention families (which derive theirs from
-    ``batch_extras``) are not ported yet."""
+    device. The cross-attention families derive their cross K/V from the
+    modality embeddings in ``batch_extras``."""
     mod = family_module(cfg)
     device = T.leaves(params)[0].device
     if cfg.family == "ssm":
         return mod.init_cache(cfg, batch, device=device)
+    if cfg.family == "vlm":
+        ikv = vlm.image_kv_from_embeds(params, cfg,
+                                       batch_extras["image_embeds"])
+        return {"self": vlm.init_self_cache(cfg, batch, max_seq, device),
+                "image_kv": ikv}
+    if cfg.family == "audio":
+        enc_out = encdec.encode(params, cfg, batch_extras["audio_frames"])
+        return {"self": encdec.init_self_cache(cfg, batch, max_seq, device),
+                "cross_kv": encdec.cross_kv(params, cfg, enc_out)}
     return mod.init_cache(cfg, batch, max_seq, device)
 
 

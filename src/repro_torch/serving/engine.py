@@ -33,6 +33,22 @@ class Completion:
     tokens: np.ndarray
 
 
+def modality_stubs(cfg: ModelConfig, batch: int, device) -> dict:
+    """The engine's modality frontends, which are stubs: zero image
+    embeddings (b, n_image_tokens, d_vision) for vlm and zero audio frames
+    (b, n_audio_frames, d_audio) for audio in cfg.dtype, as the
+    reference's engine feeds; an empty dict for the other families."""
+    if cfg.family == "vlm":
+        return {"image_embeds": torch.zeros(
+            (batch, cfg.n_image_tokens, cfg.d_vision), dtype=cfg.dtype,
+            device=device)}
+    if cfg.family == "audio":
+        return {"audio_frames": torch.zeros(
+            (batch, cfg.n_audio_frames, cfg.d_audio), dtype=cfg.dtype,
+            device=device)}
+    return {}
+
+
 class ServingEngine:
     """Fixed-shape batched engine. Requests in one batch must share a
     prompt length (the batcher buckets by length): the models take no
@@ -71,6 +87,7 @@ class ServingEngine:
         gen = max(r.max_new_tokens for r in requests)
         toks = np.stack([r.prompt for r in requests]).astype(np.int32)
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        batch.update(modality_stubs(cfg, len(requests), self.device))
         self._sync()
         t0 = time.perf_counter()
         logits, cache = registry.prefill(self.params, cfg, batch,

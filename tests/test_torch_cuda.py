@@ -180,6 +180,29 @@ def test_flash_main_shape_strided_matches_plain(gen):
     assert _rel_norm_err(got, want) < BF16_REL_NORM
 
 
+@pytest.mark.parametrize("b,h,kv,d", [(8, 16, 16, 64), (4, 64, 8, 128)],
+                         ids=["seamless-m4t-medium", "llama-3.2-vision-90b"])
+def test_flash_cross_family_decoder_shapes_match_plain(gen, b, h, kv, d):
+    """The decoders' self-attention at the scoring shapes of
+    seamless-m4t-medium (8, 16, 2048, 64) and llama-3.2-vision-90b
+    (4, 64, 2048, 128) in bf16, on the model's views: K and V as
+    ``layers._repeat_kv`` hands them over (llama's 8 query heads per KV
+    head copied before the transpose); one launch each, on wgmma."""
+    from repro_torch.models.layers import _repeat_kv
+    s = 2048
+    q = _bshd(gen, b, s, h, d, torch.bfloat16)
+    k, v = [_repeat_kv(_randn(gen, b, s, kv, d, dtype=torch.bfloat16),
+                       h // kv).transpose(1, 2) for _ in range(2)]
+    before = dict(fa.ROUTE_LAUNCHES)
+    got = fa.flash_attention(q, k, v, causal=True)
+    assert fa.ROUTE_LAUNCHES["wgmma"] == before["wgmma"] + 1
+    want = fa.plain_flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert _rel_norm_err(got, want) < BF16_REL_NORM
+    assert got.transpose(1, 2).is_contiguous()
+
+
 def test_flash_refuses_views_it_cannot_read(gen):
     x = _randn(gen, 1, 2, 64, 64, dtype=torch.bfloat16)
     before = fa.LAUNCHES

@@ -222,15 +222,22 @@ def test_olmo_1b_full_width():
 
 
 def test_other_families_name_their_roadmap_item():
-    """The families not ported yet (vlm, audio) raise, naming A14; hybrid
-    and moe are ported."""
-    with pytest.raises(NotImplementedError, match="A14"):
-        registry.param_count(ARCHS["llama-3.2-vision-90b"])
-    with pytest.raises(NotImplementedError, match="A14"):
-        registry.init(0, reduced(ARCHS["seamless-m4t-medium"]), "cpu")
-    from repro_torch.models import hybrid, moe
+    """Every family in ARCHS has its module in the port (vlm and audio
+    were the last, ROADMAP A14), and the two cross-attention families
+    count the reference's parameters, llama-3.2-vision-90b also at the
+    depth of 20 the card runs."""
+    from repro_torch.models import encdec, hybrid, moe, vlm
+    for cfg in ARCHS.values():
+        assert registry.family_module(cfg) is not None
     assert registry.family_module(ARCHS["zamba2-7b"]) is hybrid
     assert registry.family_module(ARCHS["arctic-480b"]) is moe
+    assert registry.family_module(ARCHS["llama-3.2-vision-90b"]) is vlm
+    assert registry.family_module(ARCHS["seamless-m4t-medium"]) is encdec
+    assert registry.param_count(ARCHS["seamless-m4t-medium"]) == 878_309_376
+    vision = ARCHS["llama-3.2-vision-90b"]
+    assert registry.param_count(vision) == 87_677_280_296
+    assert registry.param_count(vision.replace(n_layers=20)) == \
+        19_224_928_264
 
 
 def test_params_bridge_roundtrip_keeps_keys_shapes_and_bits():

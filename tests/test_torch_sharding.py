@@ -1,8 +1,8 @@
 """The port's sharding rules (``distributed/sharding.py``) against the
-reference's, for the 8 archs whose families the port has (vlm and audio
-wait for ROADMAP A14): param, batch and cache specs equal the reference's
-``PartitionSpec``s entry for entry, from meta-device shapes (nothing is
-allocated, arctic-480b included). Also the ports of
+reference's, for all 10 archs: param, batch and cache specs equal the
+reference's ``PartitionSpec``s entry for entry, from meta-device shapes
+(nothing is allocated, arctic-480b included; the vlm and audio caches are
+derived from ``batch_extras``' meta stand-ins). Also the ports of
 ``tests/test_substrate.py::test_param_specs_divisible`` and
 ``::test_moe_expert_fallback``."""
 import pytest
@@ -13,17 +13,19 @@ import jax  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
 
 from repro.configs import ARCHS as J_ARCHS  # noqa: E402
+from repro.configs import batch_extras as j_batch_extras  # noqa: E402
 from repro.distributed import sharding as jsh  # noqa: E402
 from repro.launch.steps import decode_cache_shapes  # noqa: E402
 from repro.models import registry as jreg  # noqa: E402
-from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.configs import ARCHS, batch_extras  # noqa: E402
 from repro_torch.core import tree as T  # noqa: E402
 from repro_torch.distributed import (batch_specs, cache_specs,  # noqa: E402
                                      opt_state_specs, param_specs)
 from repro_torch.models import registry  # noqa: E402
 
 PORTED = sorted(a for a, c in ARCHS.items()
-                if c.family in ("dense", "moe", "ssm", "hybrid"))
+                if c.family in ("dense", "moe", "ssm", "hybrid", "vlm",
+                                "audio"))
 
 
 def _jshapes(arch):
@@ -37,7 +39,7 @@ def _specs(tree):
 
 
 def test_eight_archs_are_ported():
-    assert len(PORTED) == 8
+    assert len(PORTED) == 10
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -67,9 +69,11 @@ def test_batch_and_cache_specs_equal_reference(arch):
             {k: torch.empty(v.shape, device="meta")
              for k, v in shapes.items()}, axes, data_size=dsize))
         assert got == want
-        jcache = decode_cache_shapes(jcfg, 32, 256)
+        jcache = decode_cache_shapes(jcfg, 32, 256,
+                                     j_batch_extras(jcfg, 32, 256) or None)
         tcache = registry.init_decode_cache(
-            registry.init(0, cfg, "meta"), cfg, 32, 256)
+            registry.init(0, cfg, "meta"), cfg, 32, 256,
+            batch_extras(cfg, 32, 256) or None)
         assert [x.shape for x in jax.tree.leaves(jcache)] == \
             [tuple(x.shape) for x in T.leaves(tcache)]
         want = _specs(jsh.cache_specs(jcache, axes, model_size=16,

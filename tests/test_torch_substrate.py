@@ -114,7 +114,8 @@ SLICE = ["repro_torch", "repro_torch.configs", "repro_torch.models.base",
          "repro_torch.core.hier_sync", "repro_torch.core.elastic",
          "repro_torch.distributed.sharding", "repro_torch.launch.steps",
          "repro_torch.launch.train", "repro_torch.checkpoint.checkpointer",
-         "repro_torch.examples.train_e2e"]
+         "repro_torch.examples.train_e2e", "repro_torch.models.vlm",
+         "repro_torch.models.encdec"]
 
 
 def test_port_loads_neither_jax_nor_the_reference():

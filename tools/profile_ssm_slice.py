@@ -3,7 +3,8 @@
 model (bf16, random weights from seed 0, its kernels on) scored and served
 as chip_smoke.py does it.
 
-    python3 tools/profile_ssm_slice.py [--arch mamba2-2.7b|zamba2-7b|qwen2-moe-a2.7b]
+    python3 tools/profile_ssm_slice.py [--arch mamba2-2.7b|zamba2-7b|
+        qwen2-moe-a2.7b|seamless-m4t-medium|llama-3.2-vision-90b]
 
   - mamba2-2.7b (the default; phase 9): the SSD kernel, scoring on
     8 x 2048 tokens, prefill of 4 prompts of 2048 tokens;
@@ -11,7 +12,17 @@ as chip_smoke.py does it.
     prefill of 4 prompts of 4096 (which runs the flash kernel at its 13
     shared-block sites);
   - qwen2-moe-a2.7b (phase 14): the flash kernel, scoring on 8 x 2048,
-    prefill of 4 prompts of 2048.
+    prefill of 4 prompts of 2048;
+  - seamless-m4t-medium (phase 21): the flash kernel in the decoder,
+    scoring on 8 x 2048 with 512 audio frames, prefill of 4 prompts of
+    2048 with 1024 frames;
+  - llama-3.2-vision-90b cut to 20 layers (phase 21): the flash kernel in
+    the self layers, scoring on 4 x 2048 with 1600 image tokens, prefill
+    of 4 prompts of 2048 with 1600 image tokens.
+Scoring takes chip_smoke.modality_inputs (random, at batch_extras'
+shapes, as phase 21 scores); prefill and decode take the engine's zero
+stubs (serving.engine.modality_stubs: cfg.n_audio_frames frames for
+audio), as phase 21 serves.
 
 Builds the kernels, then traces with torch.profiler, after one untraced
 warm-up of each:
@@ -44,8 +55,8 @@ import chip_smoke as cs  # noqa: E402  (imports no torch at module level)
 
 DECODE_STEPS = 8
 TOP_KERNELS = 6  # kernels listed by name under each region's families
-# arch -> (its kernel flags, scoring batch x seq, prefill prompts x length):
-# chip_smoke.py's phases 9, 13 and 14
+# arch -> (its kernel flags and cuts, scoring batch x seq, prefill prompts
+# x length): chip_smoke.py's phases 9, 13, 14 and 21
 CELLS = {
     "mamba2-2.7b": (dict(use_ssd_kernel=True), (cs.GLOBAL_BATCH, cs.SEQ),
                     (cs.SERVE_REQUESTS, cs.SEQ)),
@@ -55,6 +66,13 @@ CELLS = {
     "qwen2-moe-a2.7b": (dict(use_flash_kernel=True),
                         (cs.GLOBAL_BATCH, cs.SEQ),
                         (cs.SERVE_REQUESTS, cs.SEQ)),
+    "seamless-m4t-medium": (dict(use_flash_kernel=True),
+                            (cs.GLOBAL_BATCH, cs.SEQ),
+                            (cs.SERVE_REQUESTS, cs.SEQ)),
+    "llama-3.2-vision-90b": (dict(use_flash_kernel=True,
+                                  n_layers=cs.VISION_DEPTH),
+                             (cs.VISION_BATCH, cs.SEQ),
+                             (cs.SERVE_REQUESTS, cs.SEQ)),
 }
 
 
@@ -124,6 +142,7 @@ def main(argv=None) -> int:
     from repro_torch.core import tree as T
     from repro_torch.kernels import _build
     from repro_torch.models import registry
+    from repro_torch.serving.engine import modality_stubs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -138,16 +157,18 @@ def main(argv=None) -> int:
     params = registry.init(0, cfg, device)
     loader = cs.make_loader(cfg, ss)
     batch = T.from_numpy(loader.next_batch(sb), device)
+    batch.update(cs.modality_inputs(cfg, sb, ss, device))
     rng = np.random.RandomState(0)
-    prompts = torch.from_numpy(rng.randint(
-        0, cfg.vocab_size, (pb, ps)).astype(np.int32)).to(device)
+    prompts = {"tokens": torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (pb, ps)).astype(np.int32)).to(device),
+        **modality_stubs(cfg, pb, device)}
 
     with torch.no_grad():
         def score():
             return registry.loss_fn(params, cfg, batch)
 
         def prefill():
-            return registry.prefill(params, cfg, {"tokens": prompts},
+            return registry.prefill(params, cfg, prompts,
                                     max_seq=ps + 2 * DECODE_STEPS + 2)
 
         trace(lambda: torch.ones(1, device=device) + 1)  # profiler start-up
