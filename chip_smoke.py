@@ -104,7 +104,8 @@ non-zero before the result lines:
      params, f32, 300 steps, the batch doubling at 100, the checkpoint
      cycle at 150 through a DiskCheckpointer in a temporary directory):
      the restored state is bit-equal to the saved one and the loss falls
-     by more than 0.5;
+     by more than 0.5; then its serverless projection (the event engine,
+     as the reference's default);
  19. the seventh slice's flash shapes against the plain version (phase 11's
      check_flash_shapes, bf16): the decoders' self-attention of
      seamless-m4t-medium, (8, 16, 2048, 64), and of llama-3.2-vision-90b,
@@ -129,7 +130,21 @@ non-zero before the result lines:
      against its plain version; then serving 4 prompts of 2048, 32 new
      tokens, through ServingEngine and its zero modality stubs (no flash
      launch: prefill attends through the KV cache); peaks under 80 GB;
- 22. timing as in phase 6: flash at the two shapes of phase 19.
+ 22. timing as in phase 6: flash at the two shapes of phase 19;
+ 23. the serverless projection of phase 17's run (train_e2e's
+     serverless_projection: full-width olmo-1b, 8 x 2048, 5 steps, as a
+     Workload on 16 x 4096 MB Lambda workers, hier, bsp and async,
+     straggler sigma 0.3, seed 0): each mode completes an iteration with
+     finite simulated wall seconds and dollars and at least 16
+     invocations; the simulated events and the host's events/s;
+ 24. the port's examples/quickstart.py on the card: reduced olmo-1b
+     trained 40 steps through launch/train.py (hier), the scheduler's
+     Scenario 1 (its deployments, wall <= 3600 s), and the CUDA
+     aggregate_shards kernel against its plain version at (8, 4096) f32
+     (rtol/atol 1e-6); exactly one aggregate_shards launch and no other;
+ 25. the golden engine trace (resnet18, hier, 2 workers, 2048 MB, batch
+     512, 1024 samples, sigma 0.3, seed 42) built from the port, twice:
+     byte for byte tests/golden_engine_trace.txt.
 
 The second-to-last line is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero without.
@@ -1392,6 +1407,76 @@ def run_train_e2e(device):
     return losses, time.perf_counter() - t0
 
 
+# ---------------------------------------------------------------------------
+# phases 23-25: the scheduler stack (simulated Lambda time, on the host)
+# ---------------------------------------------------------------------------
+
+
+def run_projection(cfg, seq: int, batch_size: int, steps: int):
+    """Phase 23: ``train_e2e.serverless_projection`` of a training run;
+    returns (each mode's EngineResult, each mode's host seconds in
+    ``EventEngine.run``)."""
+    from repro_torch.examples.train_e2e import serverless_projection
+    from repro_torch.serverless.events import EventEngine
+    run, host_s = EventEngine.run, []
+
+    def timed_run(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = run(self, *a, **kw)
+        host_s.append(time.perf_counter() - t0)
+        return out
+
+    EventEngine.run = timed_run
+    try:
+        results = serverless_projection(cfg, seq, batch_size, steps)
+    finally:
+        EventEngine.run = run
+    require(list(results) == ["bsp", "async"], f"modes {list(results)}")
+    for mode, r in results.items():
+        require(r.iters_done > 0, f"{mode}: {r.iters_done} iterations")
+        require(math.isfinite(r.wall_s) and math.isfinite(r.cost_usd),
+                f"{mode}: wall {r.wall_s}, cost {r.cost_usd}")
+        require(r.invocations >= 16, f"{mode}: {r.invocations} invocations")
+    return results, dict(zip(results, host_s))
+
+
+def run_quickstart(device):
+    """Phase 24: the port's quickstart on the card; returns (the
+    scheduler's RunResult, the kernel's max abs error, launches, s)."""
+    from repro_torch.examples import quickstart
+    zero_counts()
+    t0 = time.perf_counter()
+    losses, res, err = quickstart.main(["--device", str(device)])
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts()
+    want = dict(want_launches(), aggregate_shards=1)
+    log(f"  losses {losses[0]!r} -> {losses[-1]!r}; launches {launches}, "
+        f"expected {want}")
+    require(launches == want, f"launch counts {launches} != {want}")
+    require(bool(res.config_history) and res.wall_s <= 3600.0,
+            f"Scenario 1: {res.config_history}, wall {res.wall_s}")
+    return res, err, launches, seconds
+
+
+def golden_engine():
+    from repro_torch.serverless import (WORKLOADS, EventEngine, ObjectStore,
+                                        ParamStore)
+    return EventEngine(WORKLOADS["resnet18"], "hier", 2, 2048, 512,
+                       ParamStore(), ObjectStore(), samples=1024,
+                       straggler_sigma=0.3, seed=42)
+
+
+def check_golden_trace() -> int:
+    """Phase 25: the port's golden engine, twice, against the checked-in
+    trace byte for byte; returns its number of lines."""
+    golden = (ROOT / "tests" / "golden_engine_trace.txt").read_text()
+    texts = ["\n".join(golden_engine().run().trace) + "\n" for _ in range(2)]
+    require(texts[0] == texts[1], "the golden trace differs between runs")
+    require(texts[0] == golden, "the port's golden trace differs from "
+            "tests/golden_engine_trace.txt")
+    return len(golden.splitlines())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1660,11 +1745,37 @@ def main() -> int:
             max_abs_err=xattn_errs[arch], **t))
         log(f"  flash_attention at {arch}'s shape: {flash_rows[-1]}")
 
+    log(f"[23] the serverless projection of phase 17's run ({cfg.arch_id}, "
+        f"{n_params} params, {GLOBAL_BATCH} x {SEQ}, {TRAIN_STEPS} steps): "
+        "simulated Lambda seconds and dollars, not card measurements")
+    proj, proj_s = run_projection(cfg, SEQ, GLOBAL_BATCH, TRAIN_STEPS)
+    for mode, r in proj.items():
+        log(f"  {mode}: iters {r.iters_done}, wall_s {r.wall_s!r}, cost_usd "
+            f"{r.cost_usd!r}, invocations {r.invocations}, cap restarts "
+            f"{r.restarts}, simulated events {r.sim_events}; host "
+            f"{proj_s[mode]!r} s in EventEngine.run, "
+            f"{r.sim_events / proj_s[mode]!r} events/s ({card})")
+
+    log("[24] the port's quickstart on the card")
+    qs_res, qs_err, qs_launches, qs_s = run_quickstart(device)
+    log(f"  Scenario 1: deployed "
+        f"{sorted({(c.workers, c.memory_mb) for c in qs_res.config_history})}"
+        f", wall_s {qs_res.wall_s!r}, cost {qs_res.total_cost!r}; kernel "
+        f"max abs err {qs_err!r}; {qs_s:.1f} s")
+
+    log("[25] the golden engine trace from the port")
+    t0 = time.perf_counter()
+    n_lines = check_golden_trace()
+    log(f"  {n_lines} lines byte for byte, twice, in "
+        f"{time.perf_counter() - t0:.3f} s")
+
     kernels = [
         dict(name="aggregate_shards", route="cuda",
              source="src/repro_torch/kernels/csrc/hier_agg.cu",
              replaces="src/repro/kernels/hier_agg.py:24",
-             launches=launches["aggregate_shards"], max_abs_err=agg_err,
+             launches=(launches["aggregate_shards"]
+                       + qs_launches["aggregate_shards"]),
+             max_abs_err=agg_err, max_abs_err_quickstart_vs_ref=qs_err,
              **times["aggregate_shards"]),
         dict(name="flash_attention", route="cuda",
              variant=fa.flash_route(torch.bfloat16, main_shape[3]),

@@ -12,10 +12,14 @@ Trains a decoder LM for a few hundred steps with:
  - markov-structured synthetic data so the loss visibly decreases.
 
 Default is a 35.7M-param model (``registry.param_count``; the
-reference's docstring says ~28M). The reference then projects the run onto
-the serverless event engine; that needs the engine and ``Workload``, which
-the port does not have yet (ROADMAP A6b, A11, A10b), so
-``--skip-serverless-sim`` is the default and the projection does not run.
+reference's docstring says ~28M).
+
+After training, the run is projected onto the serverless platform: the
+trained model becomes a calibrated ``Workload`` and one epoch executes on
+the discrete-event engine (``serverless.events``) under bsp and async
+sync, with lognormal stragglers — what this exact job would cost and how
+long it would take on Lambda (simulated seconds and dollars, not
+measurements of the card). ``--skip-serverless-sim`` disables.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.train_e2e --steps 300
       [--device cpu]
@@ -35,10 +39,35 @@ from repro_torch.launch.train import make_local_mesh
 from repro_torch.models import registry
 from repro_torch.models.base import ModelConfig
 from repro_torch.optim import AdamW, warmup_cosine
+from repro_torch.serverless import EventEngine, ObjectStore, ParamStore, Workload
 
 
 def _equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(T.leaves(a), T.leaves(b)))
+
+
+def serverless_projection(cfg, seq_len: int, batch: int, steps: int):
+    """Replay this training job on the event engine: hier sync, 16 Lambda
+    workers, bsp vs async under mild stragglers. Returns each mode's
+    ``EngineResult``."""
+    params = registry.param_count(cfg)
+    w = Workload(name=cfg.arch_id, param_count=params,
+                 flops_per_sample=6.0 * params * seq_len,   # fwd+bwd decoder
+                 sample_bytes=4.0 * seq_len,
+                 dataset_samples=batch * steps)
+    n, mem = 16, 4096
+    print(f"serverless projection ({n} workers x {mem}MB, hier):")
+    results = {}
+    for mode in ("bsp", "async"):
+        res = EventEngine(w, "hier", n, mem, batch * n, ParamStore(),
+                          ObjectStore(), sync_mode=mode,
+                          straggler_sigma=0.3, seed=0,
+                          trace_enabled=False).run()
+        print(f"  {mode:5s}: {res.iters_done} iters, wall {res.wall_s:.0f}s, "
+              f"${res.cost_usd:.3f}, {res.invocations} invocations, "
+              f"{res.restarts} cap-restarts")
+        results[mode] = res
+    return results
 
 
 def run(args):
@@ -103,6 +132,8 @@ def run(args):
     print(f"loss: {losses[0]:.3f} -> {min(losses):.3f} "
           f"({time.perf_counter()-t0:.0f}s total)")
     assert min(losses) < losses[0] - 0.5, "training must clearly progress"
+    if not args.skip_serverless_sim:
+        serverless_projection(cfg, args.seq, batch_size, args.steps)
     return losses
 
 
@@ -118,11 +149,7 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None,
                     help="where the mid-run checkpoint goes (default: a "
                     "temporary directory, removed at the end)")
-    ap.add_argument("--skip-serverless-sim", action="store_true",
-                    default=True,
-                    help="always on: the serverless projection needs the "
-                    "event engine and Workload, not ported yet (ROADMAP "
-                    "A6b, A11, A10b)")
+    ap.add_argument("--skip-serverless-sim", action="store_true")
     ap.add_argument("--device", default="cuda")
     return run(ap.parse_args(argv))
 

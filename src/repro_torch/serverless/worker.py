@@ -1,26 +1,166 @@
-"""SMLT worker model (paper Section 4.2), semantic path.
+"""SMLT worker model (paper Section 4.2).
 
-``LocalWorkerPool``: n logical workers each compute real PyTorch gradients
-on their minibatch slice and synchronize through the (simulated) stores
-with real tensor payloads. The plan's *strategy* selects matching numerics
-(shard aggregation, tree means, top-k + error-feedback sparse sync).
+Two execution paths share the same interfaces:
 
-Port of the semantic half of the JAX package's ``serverless/worker.py``.
-Gradients, shards and aggregates stay on the device the gradients were
-computed on; the store holds references and counts each payload's f32
-bytes, as the reference does. The analytic half (``Workload``,
-``iteration_time``, ``comm_breakdown``) is not ported yet.
+ - **Analytic path** (paper-scale models, e.g. BERT-medium x 200 workers):
+   per-iteration compute/communication times from a calibrated workload
+   model (``Workload``, ``iteration_time``). The communication schedule is
+   a ``core.comm.CommPlan`` priced in closed form with per-phase fan-in
+   contention. The event engine and the scheduler build on it. A numpy
+   copy of the JAX package's analytic half: the same arguments give the
+   same times, bit for bit.
+ - **Semantic path** (``LocalWorkerPool``): n logical workers each compute
+   real PyTorch gradients on their minibatch slice and synchronize through
+   the (simulated) stores with real tensor payloads. The plan's *strategy*
+   selects matching numerics (shard aggregation, tree means, top-k +
+   error-feedback sparse sync). Gradients, shards and aggregates stay on
+   the device the gradients were computed on; the store holds references
+   and counts each payload's f32 bytes, as the reference does.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, Optional
 
 import torch
 
 from repro_torch.core import tree as T
-from repro_torch.core.comm import CommLike, CommPlan, build_plan
+from repro_torch.core.comm import (CommLike, CommPlan, build_plan,
+                                   overlap_iteration_time, plan_times)
 from repro_torch.core.rng import base_stream
-from repro_torch.serverless.stores import ParamStore
+from repro_torch.serverless.backends import BackendLike, resolve_backend
+from repro_torch.serverless.platform import FleetSpec, fn_gflops, fn_net_gbps
+from repro_torch.serverless.stores import ObjectStore, ParamStore
+
+# ---------------------------------------------------------------------------
+# analytic workload model
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Workload:
+    """Calibrated description of one training task (paper Section 5.1)."""
+    name: str
+    param_count: int
+    flops_per_sample: float          # fwd+bwd FLOPs per training sample
+    sample_bytes: float              # bytes of one training sample
+    dataset_samples: int
+    extra_upload_bytes: float = 0.0  # e.g. Atari RL simulation data
+
+    @property
+    def grad_bytes(self) -> float:
+        return 4.0 * self.param_count  # f32 gradients
+
+
+# Paper benchmark models (Section 5.1)
+WORKLOADS = {
+    "resnet18": Workload("resnet18", 11_000_000, 5.4e9, 150e3, 1_281_167),
+    "resnet50": Workload("resnet50", 23_000_000, 12.0e9, 150e3, 1_281_167),
+    "bert-small": Workload("bert-small", 66_000_000, 5.1e10, 2_048, 1_000_000),
+    "bert-medium": Workload("bert-medium", 110_000_000, 8.4e10, 2_048, 1_000_000),
+    "atari-rl": Workload("atari-rl", 50_000_000, 4.0e10, 33_600, 50_000_000,
+                         extra_upload_bytes=4.0 * 50_000_000),
+}
+
+
+def compute_time(w: Workload, local_batch: float, memory_mb: float,
+                 gflops: Optional[float] = None) -> float:
+    """Per-iteration compute seconds; ``gflops`` overrides the
+    memory-derived function rate (VM/GPU backends have flat rates)."""
+    rate = gflops if gflops is not None else fn_gflops(memory_mb)
+    return w.flops_per_sample * local_batch / (rate * 1e9)
+
+
+def fleet_local_batches(fleet: FleetSpec, global_batch: int) -> List[float]:
+    """Load-aware shard placement: the global batch splits in proportion
+    to each worker's compute rate, so every worker's compute time is the
+    same ``flops * global_batch / sum(rates)`` — the mixed fleet stops
+    paying the bsp barrier at its slowest worker's *compute* (network
+    caps remain per-worker). Exactly the equal split for homogeneous
+    fleets."""
+    rates = [fn_gflops(m) for m in fleet.memories]
+    total = sum(rates)
+    return [global_batch * r / total for r in rates]
+
+
+def comm_breakdown(scheme: CommLike, grad_bytes: float, n_workers: int,
+                   memory_mb: float, param_store: ParamStore,
+                   object_store: ObjectStore,
+                   n_shards: Optional[int] = None,
+                   extra_upload_bytes: float = 0.0,
+                   topk_ratio: float = 0.05,
+                   fn_net_override_gbps: Optional[float] = None
+                   ) -> Dict[str, float]:
+    """Static per-phase times of the communication plan. Each phase runs
+    with its own ``fan_in`` workers contending (the event engine relaxes
+    this to *actual* overlap). ``fn_net_override_gbps`` replaces the
+    memory-derived per-function bandwidth — the mixed-fleet approximation
+    passes the *narrowest* worker's pipe (a barriered exchange is bound
+    by it)."""
+    fn_net = (fn_net_override_gbps if fn_net_override_gbps is not None
+              else fn_net_gbps(memory_mb))
+    fn_bw = fn_net * 8  # not a bottleneck vs store; keep wide
+    plan = build_plan(scheme, grad_bytes, n_workers, n_shards=n_shards,
+                      extra_upload_bytes=extra_upload_bytes,
+                      topk_ratio=topk_ratio)
+    times, _busy = plan_times(plan, param_store, object_store, fn_bw)
+    return times
+
+
+def iteration_time(w: Workload, scheme: CommLike, n_workers: int,
+                   memory_mb: float, global_batch: int,
+                   param_store: ParamStore, object_store: ObjectStore, *,
+                   fleet: Optional[FleetSpec] = None,
+                   backend: BackendLike = None) -> Dict[str, float]:
+    """Closed-form per-iteration time. With a ``fleet``, the mixed-memory
+    approximation the Bayesian optimizer probes with: load-aware batch
+    placement makes compute ``flops * batch / sum(worker rates)`` (exact,
+    since every worker finishes its proportional slice together), while
+    synchronization keeps the min-bandwidth bound (narrowest worker's
+    pipe). Besides ``compute``/``comm``/``total`` and the per-phase
+    entries, the breakdown carries ``store_busy`` — the seconds the
+    param store is held by transfers (the keep-alive billing basis,
+    which excludes any decompress CPU in ``comm`` and every
+    object-store phase). A pipelined plan (``pipeline_depth > 1``)
+    prices the iteration as ``max(compute, hidden comm) + exposed comm
+    + bubble`` — the overlappable uploads hide under segmented compute
+    — and reports the split under ``comm_hidden`` / ``comm_exposed`` /
+    ``bubble`` (``comm`` stays the total communication *work*, hidden
+    or not; ``store_busy`` is likewise unchanged by overlap, since a
+    hidden transfer still holds the store)."""
+    n_workers = len(fleet) if fleet is not None else n_workers
+    spec = resolve_backend(backend)
+    if spec is not None:
+        # VM-kind backend: a flat per-worker compute rate and NIC make
+        # the fleet homogeneous regardless of the memory tiers
+        local_batch = max(global_batch // n_workers, 1)
+        comp = compute_time(w, local_batch, memory_mb,
+                            gflops=spec.gflops_for(memory_mb))
+        net_override = spec.net_gbps_for(memory_mb)
+    elif fleet is None or fleet.is_homogeneous:
+        mem = fleet.memories[0] if fleet is not None else memory_mb
+        local_batch = max(global_batch // n_workers, 1)
+        comp = compute_time(w, local_batch, mem)
+        net_override = None if fleet is None else fleet.min_net_gbps()
+    else:
+        comp = (w.flops_per_sample * global_batch
+                / (fleet.gflops_total() * 1e9))
+        net_override = fleet.min_net_gbps()
+    fn_net = (net_override if net_override is not None
+              else fn_net_gbps(memory_mb))
+    plan = build_plan(scheme, w.grad_bytes, n_workers,
+                      extra_upload_bytes=w.extra_upload_bytes)
+    comm, store_busy = plan_times(plan, param_store, object_store, fn_net * 8)
+    hidden_names = {ph.name for ph in plan.overlappable_phases}
+    hidden = sum(t for name, t in comm.items() if name in hidden_names)
+    exposed = sum(comm.values()) - hidden
+    ov = overlap_iteration_time(comp, hidden, exposed, plan.pipeline_depth)
+    return {"compute": comp, "comm": sum(comm.values()),
+            "total": ov["total"], "store_busy": store_busy,
+            "comm_hidden": ov["comm_hidden"],
+            "comm_exposed": ov["comm_exposed"], "bubble": ov["bubble"],
+            **comm}
+
 
 # ---------------------------------------------------------------------------
 # gradient sharding math

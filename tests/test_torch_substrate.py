@@ -115,7 +115,16 @@ SLICE = ["repro_torch", "repro_torch.configs", "repro_torch.models.base",
          "repro_torch.distributed.sharding", "repro_torch.launch.steps",
          "repro_torch.launch.train", "repro_torch.checkpoint.checkpointer",
          "repro_torch.examples.train_e2e", "repro_torch.models.vlm",
-         "repro_torch.models.encdec"]
+         "repro_torch.models.encdec", "repro_torch.serverless.backends",
+         "repro_torch.serverless.platform", "repro_torch.serverless.arrivals",
+         "repro_torch.serverless.events", "repro_torch.core.constraints",
+         "repro_torch.core.monitor", "repro_torch.core.bayes_opt",
+         "repro_torch.core.cost_model", "repro_torch.core.probe_cache",
+         "repro_torch.core.scheduler", "repro_torch.serving.batcher",
+         "repro_torch.examples.quickstart",
+         "repro_torch.examples.deadline_budget",
+         "repro_torch.examples.nas_dynamic",
+         "repro_torch.examples.serve_batched"]
 
 
 def test_port_loads_neither_jax_nor_the_reference():

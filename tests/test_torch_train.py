@@ -229,3 +229,40 @@ def test_train_e2e_example_on_cpu(capsys):
     out = capsys.readouterr().out
     assert len(losses) == 60 and all(np.isfinite(losses))
     assert "batch 8 -> 16" in out and "state bit-equal" in out
+    assert "serverless projection (16 workers x 4096MB, hier):" in out
+    assert "  bsp  : " in out and "  async: " in out
+
+
+def test_serverless_projection_matches_reference(capsys):
+    """The projection of full-width olmo-1b as the card runs it (8 x 2048,
+    5 steps) prints what the reference's prints, and each mode's
+    ``EngineResult`` equals the reference engine's on the same job."""
+    import importlib.util
+    import pathlib
+
+    from repro.serverless import EventEngine as JEngine
+    from repro.serverless import ObjectStore as JObjectStore
+    from repro.serverless import ParamStore as JParamStore
+    from repro.serverless import Workload as JWorkload
+    from torch_sim_parity import same
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" / \
+        "train_e2e.py"
+    spec = importlib.util.spec_from_file_location("reference_train_e2e", path)
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+
+    ref.serverless_projection(J_ARCHS["olmo-1b"], 2048, 8, 5)
+    want = capsys.readouterr().out
+    got = train_e2e.serverless_projection(ARCHS["olmo-1b"], 2048, 8, 5)
+    assert capsys.readouterr().out == want
+    params = jreg.param_count(J_ARCHS["olmo-1b"])
+    assert params == 1_279_787_008
+    w = JWorkload(name="olmo-1b", param_count=params,
+                  flops_per_sample=6.0 * params * 2048,
+                  sample_bytes=4.0 * 2048, dataset_samples=40)
+    for mode in ("bsp", "async"):
+        same(got[mode], JEngine(w, "hier", 16, 4096, 128, JParamStore(),
+                                JObjectStore(), sync_mode=mode,
+                                straggler_sigma=0.3, seed=0,
+                                trace_enabled=False).run())
+        assert got[mode].iters_done > 0 and got[mode].invocations >= 16
