@@ -144,7 +144,23 @@ non-zero before the result lines:
      (rtol/atol 1e-6); exactly one aggregate_shards launch and no other;
  25. the golden engine trace (resnet18, hier, 2 workers, 2048 MB, batch
      512, 1024 samples, sigma 0.3, seed 42) built from the port, twice:
-     byte for byte tests/golden_engine_trace.txt.
+     byte for byte tests/golden_engine_trace.txt;
+ 26. the port's examples/deadline_budget.py with its defaults (bert-medium,
+     25,000 samples, 6 epochs, deadline 3600 s, budget $50, seed 0):
+     Scenario 3, a train -> fine-tune -> eval workflow under one goal on
+     the analytic engine; each task's window, epochs, workers, dollars
+     and grant, the workflow's wall and ledger equal the JAX package's
+     (SCENARIO3, exact), both goals met;
+ 27. the golden workflow trace (tools/golden_workflow_trace.py: an
+     8-trial, 2-rung successive-halving sweep and a fine-tune, then a
+     train -> eval -> deploy -> online_update DAG whose deploy is a
+     ServingJob, both on the event engine) built from the port, each
+     workflow twice: byte for byte tests/golden_workflow_trace.txt, the
+     sweep's wall, ledger and winner equal the JAX package's (HPO_GOLDEN);
+ 28. the port's simlint over src/repro_torch: no finding; the known-bad
+     determinism fixture copied under repro_torch/serverless and
+     repro_torch/workflow fires det-raw-randomstate and det-set-iter on
+     the original's lines.
 
 The second-to-last line is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero without.
@@ -152,11 +168,15 @@ The second-to-last line is the {"kernels": [...]} record; the last is
 from __future__ import annotations
 
 import contextlib
+import importlib.util
+import io
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1477,6 +1497,110 @@ def check_golden_trace() -> int:
     return len(golden.splitlines())
 
 
+# ---------------------------------------------------------------------------
+# phases 26-28: the workflow layer and the port's simlint (on the host)
+# ---------------------------------------------------------------------------
+
+# Scenario 3 of examples/deadline_budget.py at its defaults, as the JAX
+# package gives it on the CPU: per task (start_s, finish_s, epochs,
+# workers, dollars, granted dollars), simulated Lambda seconds and dollars
+SCENARIO3 = {
+    "train": (0.0, 2293.8465290137187, 4, 41, 12.408518767686587,
+              27.465151862941777),
+    "finetune": (2293.8465290137187, 2579.2944464492502, 1, 100,
+                 4.0887497359357345, 18.394320821542276),
+    "eval": (2579.2944464492502, 2976.588002717184, 1, 100,
+             6.362249779341848, 23.502731496377677),
+}
+# and the workflow's (wall_s, ledger_usd, trace lines)
+SCENARIO3_TOTALS = (2976.588002717184, 22.859518282964174, 6)
+# the golden workflow trace's sweep, as the JAX package gives it: (wall_s,
+# ledger_usd, trace lines, (winning trial, its loss))
+HPO_GOLDEN = (1486.5402872616585, 1.4393586019392592, 51,
+              (1, 0.1385806875623638))
+SCOPED_RULES = ("det-raw-randomstate", "det-set-iter")
+
+
+def run_scenario3():
+    """Phase 26: the port's deadline_budget example with its defaults;
+    returns (Scenario 3's WorkflowResult, its per-task rows, what the
+    example printed, host seconds)."""
+    from repro_torch.examples import deadline_budget
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        _, _, res = deadline_budget.main([])
+    seconds = time.perf_counter() - t0
+    rows = {}
+    for name, r in res.tasks.items():
+        cfg = res.config_of(name)
+        rows[name] = (res.start_s[name], res.finish_s[name], r.epochs_done,
+                      cfg.workers if cfg else 0, r.total_cost,
+                      res.allocations[name].budget_usd)
+    require(rows == SCENARIO3, f"Scenario 3's tasks {rows!r}")
+    totals = (res.wall_s, res.ledger_usd, len(res.trace))
+    require(totals == SCENARIO3_TOTALS, f"Scenario 3's totals {totals!r}")
+    text = out.getvalue()
+    require("deadline 3,600 s -> MET; budget $50.00 -> MET" in text,
+            "Scenario 3 missed its goal")
+    return res, rows, text, seconds
+
+
+def golden_workflow_tool():
+    spec = importlib.util.spec_from_file_location(
+        "golden_workflow_trace", ROOT / "tools" / "golden_workflow_trace.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def check_golden_workflow():
+    """Phase 27: the golden workflow trace from the port (each workflow
+    run twice), byte for byte; returns (each workflow's WorkflowResult,
+    lines, host seconds)."""
+    tool = golden_workflow_tool()
+    t0 = time.perf_counter()
+    text, results = tool.golden_text("repro_torch")
+    seconds = time.perf_counter() - t0
+    require(text == tool.GOLDEN.read_text(), "the port's workflow trace "
+            "differs from tests/golden_workflow_trace.txt")
+    hpo = results["hpo"]
+    got = (hpo.wall_s, hpo.ledger_usd, len(hpo.trace), hpo.winners["hpo"])
+    require(got == HPO_GOLDEN, f"the sweep's results {got!r}")
+    return results, len(text.splitlines()), seconds
+
+
+def check_port_simlint():
+    """Phase 28: the port's linter finds nothing in src/repro_torch, and its
+    widened scopes fire on the known-bad fixture under the port's layers;
+    returns (files linted, each scoped rule's lines, host seconds)."""
+    from repro_torch.analysis import Linter
+    t0 = time.perf_counter()
+    linter = Linter()
+    files = linter.collect([str(ROOT / "src" / "repro_torch")])
+    findings = linter.lint_files(files)
+    require(not findings, "simlint findings in src/repro_torch: "
+            + "; ".join(f.render() for f in findings))
+
+    def scoped(path):
+        fs = Linter().lint_paths([str(path)])
+        return {rule: sorted(f.line for f in fs if f.rule == rule)
+                for rule in SCOPED_RULES}
+
+    bad = (ROOT / "tests" / "lint_fixtures" / "known_bad" / "repro"
+           / "serverless" / "bad_det.py")
+    want = scoped(bad)
+    require(all(want.values()), f"the fixture's own findings {want}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for layer in ("serverless", "workflow"):
+            dst = Path(tmp) / "repro_torch" / layer / "bad_det.py"
+            dst.parent.mkdir(parents=True)
+            shutil.copy(bad, dst)
+            got = scoped(dst)
+            require(got == want, f"repro_torch/{layer}: {got} != {want}")
+    return len(files), want, time.perf_counter() - t0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1768,6 +1892,32 @@ def main() -> int:
     n_lines = check_golden_trace()
     log(f"  {n_lines} lines byte for byte, twice, in "
         f"{time.perf_counter() - t0:.3f} s")
+
+    log("[26] the port's deadline_budget, Scenario 3 (defaults; simulated "
+        "Lambda seconds and dollars, not card measurements)")
+    wf_res, wf_rows, wf_text, wf_s = run_scenario3()
+    for line in wf_text.strip().splitlines():
+        log(f"  | {line}")
+    for name, (start, finish, epochs, workers, usd, grant) in wf_rows.items():
+        log(f"  {name}: {start!r} -> {finish!r} s, {epochs} epochs, "
+            f"{workers} workers, ${usd!r} of ${grant!r}")
+    log(f"  wall_s {wf_res.wall_s!r}, ledger_usd {wf_res.ledger_usd!r}, "
+        f"{len(wf_res.trace)} trace lines; equal to the JAX package's; "
+        f"host {wf_s!r} s for the example's three scenarios ({card})")
+
+    log("[27] the golden workflow trace from the port")
+    gw_res, gw_lines, gw_s = check_golden_workflow()
+    for name, r in gw_res.items():
+        log(f"  {name}: wall_s {r.wall_s!r}, ledger_usd {r.ledger_usd!r}, "
+            f"{len(r.trace)} trace lines, winners {r.winners!r}")
+    log(f"  {gw_lines} lines byte for byte, each workflow twice; host "
+        f"{gw_s!r} s ({card})")
+
+    log("[28] the port's simlint over src/repro_torch")
+    n_files, scoped_lines, lint_s = check_port_simlint()
+    log(f"  {n_files} files, no finding; the known-bad fixture under "
+        f"repro_torch/serverless and repro_torch/workflow fires "
+        f"{scoped_lines}; host {lint_s!r} s ({card})")
 
     kernels = [
         dict(name="aggregate_shards", route="cuda",

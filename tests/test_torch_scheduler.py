@@ -237,8 +237,10 @@ def test_quickstart_scheduler_and_kernel_layers_on_cpu(capsys):
 
 def test_scheduler_examples_print_what_the_reference_prints(capsys,
                                                             monkeypatch):
-    """nas_dynamic and deadline_budget's Scenarios 1 and 2 print the same
-    text as the reference's examples (every number in them)."""
+    """nas_dynamic and deadline_budget's three scenarios print the same
+    text as the reference's examples (every number in them), and Scenario
+    3's ``WorkflowResult`` equals the reference's ``run_workflow``'s."""
+    import argparse
     from repro_torch.examples import deadline_budget, nas_dynamic
     reference_example("nas_dynamic").main()
     want = capsys.readouterr().out
@@ -247,9 +249,16 @@ def test_scheduler_examples_print_what_the_reference_prints(capsys,
     assert len(adaptive.config_history) == 6 and len(nas.events) > 12
 
     monkeypatch.setattr("sys.argv", ["deadline_budget.py"])
-    reference_example("deadline_budget").main()
+    ref = reference_example("deadline_budget")
+    ref.main()
     want = capsys.readouterr().out
-    res1, res2 = deadline_budget.main([])
+    res1, res2, res3 = deadline_budget.main([])
     got = capsys.readouterr().out
-    assert got.strip() and want.startswith(got.rstrip("\n"))
-    assert "Scenario 3" in want[len(got):]   # the workflow layer's, not ported
+    assert "Scenario 3" in got and got == want
+    args = argparse.Namespace(deadline=3600.0, budget=50.0,
+                              model="bert-medium", epochs=6, samples=25_000)
+    want3, goal3 = ref.run_workflow(args)
+    same(want3, res3)
+    assert list(res3.tasks) == ["train", "finetune", "eval"]
+    assert res3.wall_s <= goal3.deadline_s
+    assert res3.ledger_usd <= goal3.budget_usd

@@ -124,7 +124,13 @@ SLICE = ["repro_torch", "repro_torch.configs", "repro_torch.models.base",
          "repro_torch.examples.quickstart",
          "repro_torch.examples.deadline_budget",
          "repro_torch.examples.nas_dynamic",
-         "repro_torch.examples.serve_batched"]
+         "repro_torch.examples.serve_batched", "repro_torch.workflow",
+         "repro_torch.workflow.dag", "repro_torch.workflow.tuner",
+         "repro_torch.workflow.allocator", "repro_torch.workflow.orchestrator",
+         "repro_torch.analysis", "repro_torch.analysis.core",
+         "repro_torch.analysis.determinism", "repro_torch.analysis.units",
+         "repro_torch.analysis.coverage", "repro_torch.analysis.api",
+         "repro_torch.analysis.lint"]
 
 
 def test_port_loads_neither_jax_nor_the_reference():

@@ -1,6 +1,6 @@
 """Helpers of the simulator parity tests (tests/test_torch_{platform,events,
-scheduler,arrivals}.py): both packages' numpy layers side by side, and an
-exact structural comparison of their results."""
+scheduler,arrivals,workflow}.py): both packages' numpy layers side by side,
+and an exact structural comparison of their results."""
 import dataclasses
 import importlib
 import math
@@ -12,7 +12,8 @@ MODULES = ("core.bayes_opt", "core.comm", "core.constraints",
            "core.cost_model", "core.monitor", "core.probe_cache",
            "core.scheduler", "serverless.arrivals", "serverless.backends",
            "serverless.events", "serverless.platform", "serverless.stores",
-           "serverless.worker", "serving.batcher")
+           "serverless.worker", "serving.batcher", "workflow.allocator",
+           "workflow.dag", "workflow.orchestrator", "workflow.tuner")
 
 
 def package(name: str) -> types.SimpleNamespace:
