@@ -160,7 +160,28 @@ non-zero before the result lines:
  28. the port's simlint over src/repro_torch: no finding; the known-bad
      determinism fixture copied under repro_torch/serverless and
      repro_torch/workflow fires det-raw-randomstate and det-set-iter on
-     the original's lines.
+     the original's lines;
+ 29. the ZeRO-3 step at full width: phase 17's run (olmo-1b, bf16, 8 x
+     2048, 5 steps through launch/train.py::train, world size 1 on NCCL)
+     with make_train_step(fsdp=True): losses equal phase 17's at rtol
+     1e-5, exactly 16 x 5 flash launches, all on wgmma; step seconds,
+     tokens/s and peak beside phase 17's;
+ 30. the dry run held against the card: launch/dryrun.py's lower_one for
+     full-width olmo-1b (hier, fsdp=True, remat, the flash kernel) on a
+     one-rank mesh at 8 x 2048 train, on fake CUDA tensors; then the same
+     step run for real under FlopCounterMode: the predicted FLOPs equal
+     the measured ones exactly, and the predicted peak lies within
+     DRYRUN_PEAK_RTOL of max_memory_allocated; then olmo-1b train_4k,
+     mistral-large-123b decode_32k, zamba2-7b long_500k and arctic-480b
+     train_4k traced on the 256-rank production mesh (fake process
+     group, fake CUDA tensors), each one's terms and trace seconds
+     (per-rank predictions, not card measurements);
+ 31. the prefill and serve steps at full width: olmo-1b in bf16 through
+     make_prefill_step and make_serve_step (fsdp=True) over a one-rank
+     mesh, 4 prompts of 2048 then 32 greedy tokens: the tokens equal
+     ServingEngine's (phase 13's path) on the same prompts and weights;
+     prefill seconds and decode ms per token per request beside the
+     engine's.
 
 The second-to-last line is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero without.
@@ -234,6 +255,20 @@ VISION_DEPTH = 20
 VISION_BATCH = 4
 # the vlm wiring opens the cross layers' tanh gates, which are zero at init
 XATTN_GATE = 0.5
+# phase 30: the dry run's predicted peak against max_memory_allocated
+DRYRUN_PEAK_RTOL = 0.15
+# phase 30: the remat step against the same step with remat off (the
+# ZeRO-3 gather inside the checkpoint, again in the backward). The f32
+# first moments, (1 - b1) times the clipped gradient, hold the gradients
+# leaf by leaf; the bf16 parameters the whole update, whose Adam first
+# step is lr times the gradient's sign, so a gradient within rounding of
+# zero may flip one element
+REMAT_MU_REL_NORM = 1e-3
+REMAT_UPDATE_REL_NORM = 1e-2
+# phase 30's traces on the 256-rank production mesh
+PRODUCTION_TRACES = (("olmo-1b", "train_4k"), ("mistral-large-123b",
+                                               "decode_32k"),
+                     ("zamba2-7b", "long_500k"), ("arctic-480b", "train_4k"))
 
 
 def log(*a):
@@ -1394,10 +1429,11 @@ def check_train_step_wiring(cfg, device, batch_size: int, seq: int):
         del g
 
 
-def run_hier_training(cfg, device, batch_size: int, seq: int, steps: int):
-    """Phase 17: ``launch/train.py::train`` with the ``hier`` step, seed-0
-    weights; returns (losses, step seconds, launches, routes, peak
-    bytes)."""
+def run_hier_training(cfg, device, batch_size: int, seq: int, steps: int,
+                      fsdp: bool = False):
+    """Phases 17 and 29: ``launch/train.py::train`` with the ``hier`` step
+    (ZeRO-3 parameters under ``fsdp``), seed-0 weights; returns (losses,
+    step seconds, launches, routes, peak bytes)."""
     import torch
     from repro_torch.core import tree as T
     from repro_torch.kernels import flash_attention as fa
@@ -1407,7 +1443,7 @@ def run_hier_training(cfg, device, batch_size: int, seq: int, steps: int):
     zero_counts()
     params, losses, step_s = train(cfg, steps=steps, batch=batch_size,
                                    seq=seq, strategy="hier", log_every=1,
-                                   device=device)
+                                   device=device, fsdp=fsdp)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     launches, routes = kernel_counts(), dict(fa.ROUTE_LAUNCHES)
@@ -1425,6 +1461,162 @@ def run_train_e2e(device):
     t0 = time.perf_counter()
     losses = train_e2e.main(["--device", str(device)])
     return losses, time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# phases 30-31: the dry run against the card, the prefill and serve steps
+# ---------------------------------------------------------------------------
+
+
+def check_dryrun(device, batch_size: int, seq: int):
+    """Phase 30: the dry run of full-width olmo-1b's ZeRO-3 ``hier`` step
+    (remat, the flash kernel) on a one-rank mesh, on fake CUDA tensors,
+    against the same step run for real. Returns (prediction, measured
+    FLOPs, measured peak, memory held before the step, launches, routes,
+    and the step's first moments and update against the same step with
+    remat off)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_custom_mesh, process_group
+    from repro_torch.models import registry
+    from repro_torch.models.base import InputShape
+    shape = InputShape(f"train_{batch_size}x{seq}", seq, batch_size,
+                       "train")
+    pred = D.lower_one("olmo-1b", shape, multi_pod=False, mesh_shape="1x1",
+                       device=device.type)
+    cfg = D.dryrun_config("olmo-1b", shape)
+    with process_group(device):
+        mesh = make_custom_mesh("1x1", device.type)
+        step = D.make_step(cfg, shape, mesh)
+        args = D.step_args(step, cfg, shape, device=device,
+                           init=lambda p: registry.init(0, cfg, device))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with FlopCounterMode(display=False) as flops:
+            out = step(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches, routes = kernel_counts(), dict(fa.ROUTE_LAUNCHES)
+        require(math.isfinite(float(out[2])), f"loss {float(out[2])}")
+        params = args[0]
+        del out, args, step
+        torch.cuda.empty_cache()
+        cmp = compare_remat(cfg, shape, mesh, params, device)
+        del params
+    torch.cuda.empty_cache()
+    return pred, flops.get_total_flops(), peak, held, launches, routes, cmp
+
+
+def compare_remat(cfg, shape, mesh, params, device) -> dict:
+    """Phase 30: one step of ``cfg`` (remat) and one with remat off, from
+    the same ``params`` and fresh moments, on the seeded loader's first
+    batch (on the dry run's zero batch every position holds the same
+    token, so the attention's query and key gradients are zero but for
+    rounding, and would compare noise with noise). Returns the worst
+    leaf's first-moment relative norm and its path, the update's relative
+    norm, and how many bf16 parameters differ."""
+    import torch
+    from repro_torch.core import tree as T
+    from repro_torch.launch import dryrun as D
+    batch = T.from_numpy(make_loader(cfg, shape.seq_len).next_batch(
+        shape.global_batch), device)
+    outs = []
+    for c in (cfg, cfg.replace(remat=False)):
+        step = D.make_step(c, shape, mesh)
+        new, state, _ = step(params, step.init_opt_state(params),
+                             step.local_batch(batch))
+        outs.append(list(zip(T.leaves(new), T.leaves(state.mu))))
+        if c.remat:         # to the host while the plain step runs
+            outs[0] = [(p.cpu(), m.cpu()) for p, m in outs[0]]
+        del new, state, step
+        torch.cuda.empty_cache()
+    worst, worst_path = 0.0, None
+    diff_sq = upd_sq = 0.0
+    differ = 0
+    for (path, old), (rp, rm), (p, m) in zip(
+            T.leaves_with_path(params), *outs, strict=True):
+        rp, rm = rp.to(device).float(), rm.to(device)
+        d, n = float((rm - m).norm()), float(m.norm())
+        err = d / n if n else (0.0 if d == 0 else math.inf)
+        if err >= worst:
+            worst, worst_path = err, path
+        diff_sq += float((rp - p.float()).square().sum())
+        upd_sq += float((p.float() - old.float()).square().sum())
+        differ += int((rp != p.float()).sum())
+    return dict(mu_rel_norm=worst, mu_worst_leaf=worst_path,
+                update_rel_norm=math.sqrt(diff_sq / upd_sq),
+                params_differing=differ,
+                params=sum(x.numel() for x in T.leaves(params)))
+
+
+def run_production_traces(device):
+    """Phase 30's traces on the 256-rank production mesh (fake process
+    group, fake tensors on ``device``); returns each one's result."""
+    from repro_torch.launch.dryrun import lower_one
+    out = {}
+    for arch, shape in PRODUCTION_TRACES:
+        res = lower_one(arch, shape, multi_pod=False, device=device.type)
+        for key in ("flops", "bytes_accessed", "collective_bytes"):
+            require(math.isfinite(res[key]) and res[key] > 0,
+                    f"{arch} {shape}: {key} {res[key]}")
+        require(res["memory"]["peak_memory_in_bytes"] > 0,
+                f"{arch} {shape}: memory {res['memory']}")
+        out[(arch, shape)] = res
+    return out
+
+
+def run_prefill_serve_steps(cfg, device, n_requests: int, prompt_len: int,
+                            new_tokens: int):
+    """Phase 31: ServingEngine on seed-0 weights (run_serving's prompts),
+    then the same prompts through make_prefill_step and make_serve_step
+    (fsdp=True) over a one-rank mesh, greedy; returns (engine stats, the
+    steps' prefill seconds, decode seconds, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_custom_mesh, process_group
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import registry
+    params = registry.init(0, cfg, device)
+    out, stats, _ = run_serving(cfg, params, device, n_requests, prompt_len,
+                                new_tokens)
+    want = np.stack([c.tokens for c in out])
+    rng = np.random.RandomState(0)             # run_serving's prompts
+    toks = np.stack([rng.randint(0, cfg.vocab_size, prompt_len)
+                     .astype(np.int32) for _ in range(n_requests)])
+    with process_group(device):
+        mesh = make_custom_mesh("1x1", device.type)
+        prefill = make_prefill_step(cfg, mesh, fsdp=True)
+        serve = make_serve_step(cfg, mesh, fsdp=True)
+        held = prefill.shard_params(params)
+        del params
+        batch = prefill.local_batch(
+            {"tokens": torch.from_numpy(toks).to(device)})
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(held, batch, max_seq=prompt_len + new_tokens)
+        tok = torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gen = [tok]
+        for t in range(new_tokens - 1):
+            logits, cache = serve(held, cache, prompt_len + t, tok)
+            tok = torch.argmax(logits[:, :, :cfg.vocab_size], dim=-1)
+            gen.append(tok)
+        got = torch.cat(gen, dim=1).cpu().numpy().astype(np.int32)
+        t2 = time.perf_counter()
+        launches = kernel_counts()
+        del held, cache, logits
+    torch.cuda.empty_cache()
+    require(got.shape == want.shape and bool((got == want).all()),
+            f"the steps' greedy tokens differ from the engine's: "
+            f"{int((got != want).sum())} of {want.size}")
+    return stats, t1 - t0, t2 - t1, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1806,14 +1998,15 @@ def main() -> int:
     olmo_shape = (GLOBAL_BATCH, cfg.n_heads, SEQ, cfg.resolved_head_dim)
     require(flash_shapes[1][1] == olmo_shape, "the hier step's flash shape "
             "is not the one timed in phase 15")
-    flash_rows.append(dict(
+    hier_row = dict(
         model=f"{cfg.arch_id} (hier train step)",
         shape=list(olmo_shape), window=0,
         launches=h_launches["flash_attention"],
         max_abs_err=flash_shape_errs[moe_arch.arch_id],
         **{k: flash_rows[1][k] for k in ("ms", "call_ms", "plain_ms",
                                          "library_ms", "bound_ms",
-                                         "bound_by")}))
+                                         "bound_by")})
+    flash_rows.append(hier_row)
 
     log("[18] the port's train_e2e example at its default size")
     e2e_losses, e2e_s = run_train_e2e(device)
@@ -1918,6 +2111,94 @@ def main() -> int:
     log(f"  {n_files} files, no finding; the known-bad fixture under "
         f"repro_torch/serverless and repro_torch/workflow fires "
         f"{scoped_lines}; host {lint_s!r} s ({card})")
+
+    log(f"[29] slice 10: phase 17's run with ZeRO-3 parameters "
+        f"(make_train_step(fsdp=True)): {cfg.arch_id} bf16, "
+        f"launch/train.py::train, world size 1 (NCCL), batch "
+        f"{GLOBAL_BATCH} x {SEQ}, {TRAIN_STEPS} steps, remat off")
+    z_losses, z_step_s, z_launches, z_routes, z_peak = run_hier_training(
+        cfg, device, GLOBAL_BATCH, SEQ, TRAIN_STEPS, fsdp=True)
+    log(f"  losses {z_losses}")
+    log(f"  step seconds {z_step_s}; tokens/s "
+        f"{[tokens / t for t in z_step_s]}; peak memory {z_peak} bytes "
+        f"({z_peak / 2**30:.2f} GiB) ({card})")
+    log(f"  beside phase 17 (fsdp=False): steps 2-{TRAIN_STEPS} median "
+        f"{statistics.median(z_step_s[1:])!r} s against "
+        f"{statistics.median(h_step_s[1:])!r} s; peak {z_peak / 2**30:.2f} "
+        f"GiB against {h_peak / 2**30:.2f} GiB")
+    for a, b in zip(z_losses, h_losses):
+        require(abs(a - b) <= 1e-5 * abs(b),
+                f"ZeRO-3 losses {z_losses} != phase 17's {h_losses} "
+                "(rtol 1e-5)")
+    want = want_launches(flash=cfg.n_layers * TRAIN_STEPS)
+    log(f"  launches {z_launches}, expected {want}; flash routes {z_routes}")
+    require(z_launches == want, f"launch counts {z_launches} != {want}")
+    require(z_routes == {"wgmma": want["flash_attention"], "cuda_cores": 0},
+            f"ZeRO-3 training's flash routes {z_routes}: want all on wgmma")
+    flash_rows.append(dict(
+        hier_row, model=f"{cfg.arch_id} (ZeRO-3 train step)",
+        launches=z_launches["flash_attention"]))
+    torch.cuda.empty_cache()
+
+    log(f"[30] the dry run against the card: {cfg.arch_id} ZeRO-3 hier "
+        f"step, remat, batch {GLOBAL_BATCH} x {SEQ}, one-rank mesh")
+    pred, d_flops, d_peak, d_held, d_launches, d_routes, d_cmp = \
+        check_dryrun(device, GLOBAL_BATCH, SEQ)
+    mem = pred["memory"]
+    log(f"  predicted (fake CUDA tensors, trace {pred['trace_s']} s): flops "
+        f"{pred['flops']!r}, bytes_accessed {pred['bytes_accessed']!r}, "
+        f"collectives {pred['collectives']}, memory {mem}")
+    log(f"  measured ({card}): flops {d_flops!r}; memory held before the "
+        f"step {d_held} bytes, max_memory_allocated {d_peak} bytes "
+        f"({d_peak / 2**30:.2f} GiB); predicted peak / measured "
+        f"{mem['peak_memory_in_bytes'] / d_peak!r}")
+    require(pred["flops"] == d_flops,
+            f"predicted flops {pred['flops']!r} != measured {d_flops!r}")
+    require(abs(mem["peak_memory_in_bytes"] - d_peak)
+            <= DRYRUN_PEAK_RTOL * d_peak,
+            f"predicted peak {mem['peak_memory_in_bytes']} not within "
+            f"{DRYRUN_PEAK_RTOL} of {d_peak}")
+    want = want_launches(flash=2 * cfg.n_layers)     # remat runs it twice
+    log(f"  launches {d_launches}, expected {want}; flash routes {d_routes}")
+    require(d_launches == want, f"launch counts {d_launches} != {want}")
+    require(d_routes == {"wgmma": want["flash_attention"], "cuda_cores": 0},
+            f"the checked step's flash routes {d_routes}: want all on wgmma")
+    log(f"  against the same step with remat off, on the loader's first "
+        f"batch: first moments {d_cmp['mu_rel_norm']!r} (worst leaf, "
+        f"{d_cmp['mu_worst_leaf']}, relative norm; tolerance "
+        f"{REMAT_MU_REL_NORM}), parameter update "
+        f"{d_cmp['update_rel_norm']!r} (relative norm; tolerance "
+        f"{REMAT_UPDATE_REL_NORM}), {d_cmp['params_differing']} of "
+        f"{d_cmp['params']} bf16 parameters differ")
+    require(d_cmp["mu_rel_norm"] <= REMAT_MU_REL_NORM,
+            f"remat's first moments off by {d_cmp['mu_rel_norm']!r}")
+    require(d_cmp["update_rel_norm"] <= REMAT_UPDATE_REL_NORM,
+            f"remat's parameter update off by {d_cmp['update_rel_norm']!r}")
+    flash_rows.append(dict(
+        hier_row, model=f"{cfg.arch_id} (ZeRO-3 train step, remat)",
+        launches=d_launches["flash_attention"]))
+    for (arch, shape), res in run_production_traces(device).items():
+        log(f"  {arch} {shape} on {res['mesh']} (per-rank prediction, not a "
+            f"card measurement): flops {res['flops']!r}, bytes_accessed "
+            f"{res['bytes_accessed']!r}, collective_bytes "
+            f"{res['collective_bytes']!r}, collectives {res['collectives']}, "
+            f"memory {res['memory']}, params {res['params']}, trace_s "
+            f"{res['trace_s']}")
+
+    log(f"[31] the prefill and serve steps: {cfg.arch_id} bf16, "
+        f"make_prefill_step + make_serve_step (fsdp=True), one-rank mesh, "
+        f"{SERVE_REQUESTS} prompts of {SEQ}, {SERVE_NEW_TOKENS} greedy "
+        "tokens, against ServingEngine")
+    e_stats, p_s, dec_s, p_launches = run_prefill_serve_steps(
+        cfg, device, SERVE_REQUESTS, SEQ, SERVE_NEW_TOKENS)
+    per_tok = 1e3 / (SERVE_NEW_TOKENS - 1) / SERVE_REQUESTS
+    log(f"  tokens equal the engine's; prefill {p_s!r} s against the "
+        f"engine's {e_stats['prefill_s']!r} s; decode {dec_s * per_tok!r} ms "
+        f"per token per request against {e_stats['decode_s'] * per_tok!r} "
+        f"({card})")
+    require(p_launches == want_launches(),
+            f"the steps' launches {p_launches}: prefill attends through its "
+            "cache, so no kernel launches")
 
     kernels = [
         dict(name="aggregate_shards", route="cuda",

@@ -1,6 +1,6 @@
 """Architecture registry: the 10 assigned architectures, the 4 input
-shapes, the reduced (smoke-test) variants and the modality stubs'
-shapes (``batch_extras``, meta-device tensors: nothing is allocated).
+shapes, the reduced (smoke-test) variants, and a shape's model inputs and
+modality stubs (``input_specs``, ``batch_extras``) as meta tensors.
 
 ``reduced_batch`` draws its tokens from a numpy seed, so both packages can
 be fed the same batch.
@@ -115,3 +115,28 @@ def reduced_batch(cfg: ModelConfig, batch: int = 2, seq: int = 32,
         out["audio_frames"] = rng.randn(
             batch, cfg.n_audio_frames, cfg.d_audio).astype(np.float32)
     return out
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict:
+    """Model inputs for one workload shape, as meta tensors (int32 tokens,
+    as the reference's; the embedding takes them as they are):
+
+    train:    {tokens, labels, (extras)}                -> train step
+    prefill:  {tokens, (extras)}                        -> prefill step
+    decode:   {tokens: (b, 1), pos: 0-dim, (extras)}    -> serve step
+              (the cache is derived apart: ``launch/steps.py::
+              decode_cache_shapes``)"""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(*dims):
+        return torch.empty(dims, dtype=torch.int32, device="meta")
+    if shape.kind == "train":
+        specs = {"tokens": meta(b, s), "labels": meta(b, s)}
+    elif shape.kind == "prefill":
+        specs = {"tokens": meta(b, s)}
+    elif shape.kind == "decode":
+        specs = {"tokens": meta(b, 1), "pos": meta()}
+    else:
+        raise ValueError(shape.kind)
+    specs.update(batch_extras(cfg, b, s))
+    return specs

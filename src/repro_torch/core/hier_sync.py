@@ -16,7 +16,10 @@ A 2-level variant maps SMLT's hierarchy onto a (pod, data) mesh:
 reduce-scatter inside a pod, all-reduce of the small shards across pods,
 all-gather inside the pod.
 
-Every rank calls these functions on its own gradients (one process per
+Every collective of the port goes through ``reduce_scatter``,
+``all_gather`` and ``all_reduce`` here, which report it to
+``launch/hlo_stats.py``'s recorders. Every rank calls these functions on
+its own gradients (one process per
 worker, where the reference runs inside ``shard_map``); ``group`` is the
 process group of the mesh axis the reference names. The inputs are not
 modified.
@@ -31,6 +34,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import tree as T
+from repro_torch.launch import hlo_stats
 from repro_torch.launch.mesh import axis_size
 
 STRATEGIES = ("allreduce", "hier", "hier2", "hier2_q", "ps")
@@ -40,6 +44,7 @@ def reduce_scatter(out, inp, group):
     """Sum ``inp`` (n * k rows on every rank) over ``group``; ``out`` gets
     this rank's k rows. (``reduce_scatter_tensor`` is in every torch this
     port runs on; newer ones warn that it is deprecated.)"""
+    hlo_stats.record("reduce-scatter", out)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
         dist.reduce_scatter_tensor(out, inp, group=group)
@@ -48,10 +53,18 @@ def reduce_scatter(out, inp, group):
 
 def all_gather(out, inp, group):
     """Concatenate every rank's ``inp`` along dim 0 into ``out``."""
+    hlo_stats.record("all-gather", out)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
         dist.all_gather_into_tensor(out, inp, group=group)
     return out
+
+
+def all_reduce(x, group):
+    """Sum ``x`` over ``group`` in place."""
+    hlo_stats.record("all-reduce", x)
+    dist.all_reduce(x, group=group)
+    return x
 
 
 def _flat_pad(g, n: int):
@@ -66,7 +79,7 @@ def allreduce_mean(grads, group, n: int):
     """Baseline: plain all-reduce mean."""
     def one(g):
         g = g.clone()
-        dist.all_reduce(g, group=group)
+        all_reduce(g, group)
         return g / n
     return T.tree_map(one, grads)
 
@@ -117,10 +130,10 @@ def two_level_mean(grads, inner_group, outer_group, n_inner: int,
         shard, length, pad = _scatter(g, inner_group, n_inner)
         if compress_cross_pod and shard.dtype == torch.float32:
             shard = shard.to(torch.bfloat16)
-            dist.all_reduce(shard, group=outer_group)
+            all_reduce(shard, outer_group)
             shard = shard.float() / (n_inner * n_outer)
         else:
-            dist.all_reduce(shard, group=outer_group)
+            all_reduce(shard, outer_group)
             shard = shard / (n_inner * n_outer)
         return _gather(shard, inner_group, length, pad, g.shape)
     return T.tree_map(one, grads)
@@ -157,7 +170,7 @@ def _mean_loss(loss, mesh, *, data_axis: str = "data", pod_axis: str = "pod"):
     loss = loss.detach().clone()
     for axis in (data_axis, pod_axis):
         if axis in mesh.mesh_dim_names:
-            dist.all_reduce(loss, group=mesh.get_group(axis))
+            all_reduce(loss, mesh.get_group(axis))
             loss = loss / axis_size(mesh, axis)
     return loss
 

@@ -59,6 +59,11 @@ _RULES = [
 _STACKED = re.compile(r"^(blocks|encoder|decoder|cross)/")
 
 
+def is_stacked(path: str) -> bool:
+    """Whether the leaf at ``path`` is a layer stack (dim 0 the layers)."""
+    return bool(_STACKED.match(path))
+
+
 def _map_with_path(fn, tree):
     """``fn(path, leaf)`` over a tree, keeping its dict structure."""
     flat = T.leaves_with_path(tree)
@@ -68,7 +73,7 @@ def _map_with_path(fn, tree):
 def _assign(path: str, shape, model_size: int):
     """Pick the first candidate assignment whose dims divide evenly."""
     ndim = len(shape)
-    stacked = bool(_STACKED.match(path))
+    stacked = is_stacked(path)
     for pat, cands in _RULES:
         if re.search(pat, path):
             for cand in cands:
@@ -195,7 +200,7 @@ def placement(spec: tuple, model_size: int = 1) -> Optional[tuple]:
     if model_size != 1 and any("model" in n for n in names):
         raise NotImplementedError(
             "a model axis > 1 (tensor parallelism) is not ported yet "
-            "(ROADMAP A16)")
+            "(ROADMAP A16b)")
     for i, (ax, n) in enumerate(zip(spec, names)):
         if ax is not None and "model" not in n:
             return i, ax

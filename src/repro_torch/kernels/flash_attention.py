@@ -29,15 +29,22 @@ come out with no copy. A view the kernels cannot read raises; nothing is
 copied silently.
 
 A CPU tensor takes the plain version; a CUDA tensor launches a kernel or
-raises. ``FlashAttention`` is the differentiable form: the kernel forward
-and, as in the reference (``ops.py:48-79``), a backward that is the
-gradient of the plain blockwise attention, recomputed.
+raises. Under a dispatch mode or on a fake tensor (``traced``: the dry
+run, ``FlopCounterMode``) the forward goes through the custom op
+``smlt::flash_attention_fwd``, whose fake version gives the kernel's
+output layout with no launch and whose formula, ``flash_flops``, counts
+the products of the tiles the route's kernel runs, on every device.
+``FlashAttention`` is the differentiable form: the kernel forward and, as
+in the reference (``ops.py:48-79``), a backward that is the gradient of
+the plain blockwise attention, recomputed.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -46,6 +53,8 @@ ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}  # the same launches by route
 
 HEAD_DIMS = (32, 64, 112, 128)
 WGMMA_BK = 128  # keys per tile of the tensor-core kernel (BK in its source)
+# (queries, keys) per tile of each route's kernel (BQ, BK in its source)
+ROUTE_TILES = {"wgmma": (128, WGMMA_BK), "cuda_cores": (64, 64)}
 NEG_INF = -1e30
 
 
@@ -114,11 +123,12 @@ def kernel_strides(x: torch.Tensor, route: str) -> list[int]:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (b, h, sq, d); k, v: (b, h, sk, d) -> (b, h, sq, d). Forward only.
-    On a CUDA tensor the result is a (b, h, sq, d) view of (b, sq, h, d)
-    memory."""
-    if q.device.type == "cpu":
-        return plain_flash_attention(q, k, v, causal=causal, window=window)
+    """q: (b, h, sq, d); k, v: (b, h, sk, d) -> (b, h, sq, d), a view of
+    (b, sq, h, d) memory. Forward only. A launch on a CUDA tensor (and on a
+    meta tensor, which the CPU tests stand in for one), the plain version
+    on a CPU tensor; when ``traced``, through the custom op
+    ``smlt::flash_attention_fwd``, whose fake version gives a fake tensor
+    the kernel's output with no launch."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, d) or v.shape != k.shape:
@@ -128,12 +138,40 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes q, k, v of one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if traced(q):
+        return torch.ops.smlt.flash_attention_fwd(q, k, v, causal, window)
+    return _flash_impl(q, k, v, causal, window)
+
+
+def traced(x) -> bool:
+    """Whether a call on ``x`` must go through its custom op: under a
+    dispatch mode (``FlopCounterMode``, ``FakeTensorMode``) or on a tensor
+    subclass (a fake tensor). A plain tensor with no mode calls the
+    implementation directly, which saves the dispatcher's tens of
+    microseconds a call (the kernel at olmo-1b's shape runs 0.09 ms)."""
+    return (type(x) is not torch.Tensor
+            or _get_current_dispatch_mode() is not None)
+
+
+def _bshd_view(q):
+    b, h, sq, d = q.shape
+    return q.new_empty(b, sq, h, d).transpose(1, 2)
+
+
+def _flash_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, window: int) -> torch.Tensor:
+    """The op on real tensors: the plain version on the CPU, a launch on
+    any other device."""
+    if q.device.type == "cpu":
+        return _bshd_view(q).copy_(plain_flash_attention(
+            q, k, v, causal=causal, window=window))
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
     route = flash_route(q.dtype, d)
     strides = [s for x in (q, k, v) for s in kernel_strides(x, route)]
     global LAUNCHES
     lib = _build.load()
-    out = torch.empty(b, sq, h, d, dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    out = _bshd_view(q)
     strides += kernel_strides(out, "cuda_cores")
     st = (ctypes.c_longlong * 12)(*strides)
     with torch.cuda.device(q.device):        # the launch's current device
@@ -147,6 +185,40 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     LAUNCHES += 1
     ROUTE_LAUNCHES[route] += 1
     return out
+
+
+_flash_fwd = torch.library.custom_op("smlt::flash_attention_fwd",
+                                     _flash_impl, mutates_args=())
+
+
+@_flash_fwd.register_fake
+def _(q, k, v, causal, window):
+    flash_route(q.dtype, q.shape[3])       # what the card's kernels take
+    return _bshd_view(q)
+
+
+def flash_tiles_run(sq: int, sk: int, bq: int, bk: int, causal: bool,
+                    window: int) -> int:
+    """The (query tile, key tile) pairs a kernel with bq x bk tiles runs:
+    the reference's skip rule, a key tile wholly above the diagonal or
+    wholly outside the window is not run."""
+    n_k = -(-sk // bk)
+    total = 0
+    for q0 in range(0, sq, bq):
+        hi = min(n_k, (q0 + bq - 1) // bk + 1) if causal else n_k
+        lo = max(0, -(-(q0 - window + 2 - bk) // bk)) if window else 0
+        total += max(hi - lo, 0)
+    return total
+
+
+@register_flop_formula(torch.ops.smlt.flash_attention_fwd, get_raw=True)
+def flash_flops(q, k, v, causal, window, *args, **kwargs) -> int:
+    """FLOPs of the kernel the route of q's dtype runs: Q K^T and P V,
+    2 * bq * bk * d each, over the tiles it runs (``flash_tiles_run``)."""
+    b, h, sq, d = q.shape
+    bq, bk = ROUTE_TILES[flash_route(q.dtype, d)]
+    return 4 * b * h * bq * bk * d * flash_tiles_run(sq, k.shape[2], bq, bk,
+                                                     causal, window)
 
 
 def wgmma_tile(a, b, which: str):

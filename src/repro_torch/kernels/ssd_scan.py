@@ -25,19 +25,24 @@ The model path hands it mixed dtypes: x, B and C in the model dtype, dt
 and A in f32, D a model-dtype parameter. The wrapper upcasts dt, A and D
 (small) to f32, never downcasts, and takes x, B and C in one dtype.
 
-A CPU tensor takes the plain version; a CUDA tensor launches a kernel or
-raises. There is no backward: like the reference, which cannot
-differentiate its Pallas kernel, the wrapper refuses inputs that require
-grad on a CUDA tensor.
+A CPU tensor takes the plain version, a CUDA tensor launches a kernel or
+raises; under a dispatch mode or on a fake tensor the call goes through
+the custom op ``smlt::ssd_scan`` (``flash_attention.traced``), whose fake
+version gives the kernel's outputs with no launch and whose
+``FlopCounterMode`` formula is ``ssd_flops``. There is no backward:
+like the reference, which cannot differentiate its Pallas kernel, the
+wrapper refuses inputs that require grad on a CUDA tensor.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import kernel_strides
+from repro_torch.kernels.flash_attention import kernel_strides, traced
 
 LAUNCHES = 0  # kernel launches of ssd_scan (plain calls not counted)
 ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}  # the same launches by route
@@ -119,19 +124,36 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256, route=None):
         raise ValueError(f"s = {s} is not a multiple of chunk = {chunk}")
     if route not in (None, "wgmma", "cuda_cores"):
         raise ValueError(f"route {route!r}: want 'wgmma' or 'cuda_cores'")
-    if x.device.type == "cpu":
-        return plain_ssd_scan(x, dt, A, B, C, D, chunk)
-    if any(t.requires_grad for t in (x, dt, A, B, C, D)):
+    if x.device.type != "cpu" and any(
+            t.requires_grad for t in (x, dt, A, B, C, D)):
         raise RuntimeError(
             "ssd_scan has no backward: the kernel cannot be differentiated "
             "(neither can the reference's); use the plain ssd_chunked path "
             "for gradients")
+    if traced(x):
+        return torch.ops.smlt.ssd_scan(x, dt, A, B, C, D, chunk, route)
+    return _ssd_impl(x, dt, A, B, C, D, chunk, route)
+
+
+def _check_kernel_inputs(x, B, C, p: int, n: int):
     if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"ssd_scan takes f32 or bf16 x, B, C of one dtype, "
                         f"got {x.dtype}, {B.dtype}, {C.dtype}")
     if p > MAX_HEADDIM or n > MAX_STATE:
         raise ValueError(f"head dim {p} > {MAX_HEADDIM} or state {n} > "
                          f"{MAX_STATE}")
+
+
+def _ssd_impl(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, chunk: int,
+              route: Optional[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op on real tensors: the plain version on the CPU, a launch on
+    any other device."""
+    if x.device.type == "cpu":
+        return plain_ssd_scan(x, dt, A, B, C, D, chunk)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    _check_kernel_inputs(x, B, C, p, n)
     best = ssd_route(x.dtype, p, n, chunk)
     if route == "wgmma" and best != "wgmma":
         raise ValueError(f"the wgmma route does not take {x.dtype} with p "
@@ -165,6 +187,30 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256, route=None):
     LAUNCHES += 1
     ROUTE_LAUNCHES[route] += 1
     return y, final
+
+
+_ssd_op = torch.library.custom_op("smlt::ssd_scan", _ssd_impl,
+                                  mutates_args=())
+
+
+@_ssd_op.register_fake
+def _(x, dt, A, B, C, D, chunk, route):
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    _check_kernel_inputs(x, B, C, p, n)
+    return (x.new_empty(b, s, h, p),
+            x.new_empty(b, h, n, p, dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.smlt.ssd_scan)
+def ssd_flops(x_shape, dt_shape, A_shape, B_shape, C_shape, D_shape,
+              chunk, *args, **kwargs) -> int:
+    """FLOPs of the chunk GEMMs, per (batch, head, chunk of Q): C B^T
+    (2 Q^2 n), the masked scores times x (2 Q^2 p), C times the carried
+    state (2 Q n p) and the state update B^T x (2 Q n p)."""
+    b, s, h, p = x_shape
+    n, q = B_shape[-1], chunk
+    return 2 * b * h * (s // q) * (q * q * (n + p) + 2 * q * n * p)
 
 
 _TILE_PRODUCTS = ("cb", "px", "cs", "bx")

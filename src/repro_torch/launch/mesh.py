@@ -5,9 +5,9 @@
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh``: every rank of
 the default process group holds one position of it, and
 ``mesh.get_group(axis)`` is the group of the ranks that differ only along
-``axis``. The reference's 16x16 / 2x16x16 TPU production meshes
-(``make_production_mesh``) do not carry over to H100 hosts; their
-counterpart waits for the dry-run tools (ROADMAP A16).
+``axis``. ``make_production_mesh`` gives the H100-cluster counterparts of
+the reference's 16x16 / 2x16x16 TPU meshes, with the ``model`` axis at 1
+until tensor parallelism is ported (ROADMAP A16b).
 """
 from __future__ import annotations
 
@@ -18,6 +18,23 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch.core import tree as T
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """256 ranks as (data=256, model=1) ("256x1"); with ``multi_pod``, 512
+    as (pod=2, data=256, model=1) ("2x256x1"): the reference's chip counts
+    (16x16 and 2x16x16), on H100 clusters with the ``model`` axis left at 1
+    until tensor parallelism is ported (ROADMAP A16b). With a model axis of
+    1, ``prefill_32k`` (batch 32), ``decode_32k`` (128) and ``long_500k``
+    (1) do not divide 256 data ranks, nor ``train_4k``'s 256 the 512 of
+    "2x256x1", so ``batch_specs`` keeps those batches whole on every rank;
+    A16b's model axis removes this. Needs a default process group of 256
+    (512) ranks, e.g. the dry run's fake one."""
+    return make_custom_mesh(PRODUCTION_MESHES[multi_pod], device_type)
+
+
+PRODUCTION_MESHES = {False: "256x1", True: "2x256x1"}
 
 
 def make_custom_mesh(shape_str: str, device_type: str = "cuda"):
@@ -75,7 +92,8 @@ def data_group(mesh):
         return mesh.get_group(axes[0])
     if axis_size(mesh, "model") != 1:
         raise NotImplementedError(
-            "a model axis > 1 is not ported yet (ROADMAP A16)")
+            "a model axis > 1 (tensor parallelism) is not ported yet "
+            "(ROADMAP A16b)")
     return dist.new_group(ranks=mesh.mesh.flatten().tolist())
 
 

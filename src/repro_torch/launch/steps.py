@@ -1,7 +1,9 @@
-"""The training step over a ``torch.distributed`` mesh (port of the JAX
-package's ``launch/steps.py::make_train_step``).
+"""The steps over a ``torch.distributed`` mesh (port of the JAX package's
+``launch/steps.py``): ``make_train_step``, ``make_prefill_step``,
+``make_serve_step`` and ``decode_cache_shapes``.
 
-The SMLT synchronization strategy is a first-class knob of the step:
+The SMLT synchronization strategy is a first-class knob of the training
+step:
 
   "allreduce" — every gradient is all-reduced over the data (x pod) ranks
                 and every rank applies the whole update (the naive
@@ -12,8 +14,11 @@ The SMLT synchronization strategy is a first-class knob of the step:
                 only (its moments are held for the shard alone: ZeRO-style
                 state, each worker the paper's shard aggregator), and the
                 updated shards are all-gathered. On a (pod, data) mesh the
-                scatter and gather stay inside a pod and the shards are
-                all-reduced across pods: the 2-level hierarchy;
+                scatter and gather stay inside a pod, and the reduced shard
+                is reduce-scattered across pods, so the optimizer state
+                spans pod x data as the reference's ``ospecs`` do (a shard
+                that does not divide by the pod count is all-reduced
+                across pods instead): the 2-level hierarchy;
   "hier1"     — the flat 1-level variant over (pod, data) jointly.
 
 Leaves the rules leave unsplit (small or indivisible) are all-reduced, and
@@ -23,11 +28,17 @@ loss is the mean of the ranks' losses, which is the global batch's mean
 when the slices are equal and no label is masked (-1), as in the data
 stream here. The collectives run at every world size, one included.
 
-Not ported yet: ``fsdp=True`` (ZeRO-3 parameters) and a ``model`` axis >
-1 (tensor parallelism) raise, and so do the prefill and serve steps
-(ROADMAP A16). Where the reference spreads the ``hier`` optimizer state
-over pod x data, the port's is split over ``data`` and replicated across
-pods.
+``fsdp=True`` (every step) is ZeRO-3 over every data-like axis, on the
+reference's ``param_specs(..., fsdp_axis=data axes, fsdp_divisor=data
+size)``: each rank holds its part of every leaf those specs split
+(``shard_params``). Leaves outside the layer stacks are all-gathered once
+at the start of a step; a stacked leaf reaches the layer loops as
+per-layer shards that the layer hook (``models/transformer.py::
+gather_layer``) all-gathers just before its layer runs, inside the
+checkpointed body under ``cfg.remat``. The gather's backward is a
+reduce-scatter, so gradients leave the step as this rank's parts and
+AdamW runs on them. Not ported yet: a ``model`` axis > 1 (tensor
+parallelism, ROADMAP A16b) raises.
 """
 from __future__ import annotations
 
@@ -38,13 +49,18 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import tree as T
-from repro_torch.core.hier_sync import all_gather, reduce_scatter
-from repro_torch.distributed.sharding import param_specs, placement
-from repro_torch.launch.mesh import (axis_size, data_axes, data_group,
-                                     data_index, data_size)
+from repro_torch.core.hier_sync import all_gather, all_reduce, reduce_scatter
+from repro_torch.distributed.sharding import (is_stacked, param_specs,
+                                              placement)
+from repro_torch.launch.mesh import (axis_index, axis_size, data_axes,
+                                     data_group, data_index, data_size)
 from repro_torch.models import registry
 from repro_torch.models.base import ModelConfig
 from repro_torch.optim.adamw import AdamW, AdamWState
+
+# the reference's param_specs default: ZeRO-3 splits the leaves of 2**20
+# elements or more (none of a reduced config's: the tests lower it)
+FSDP_MIN_SIZE = 2 ** 20
 
 
 def _grad_axes(mesh, strategy: str):
@@ -57,81 +73,174 @@ def _grad_axes(mesh, strategy: str):
     raise ValueError(f"unknown train sync strategy {strategy!r}")
 
 
+def _model_axis(mesh) -> int:
+    model_n = axis_size(mesh, "model")
+    if model_n != 1:
+        raise NotImplementedError(
+            "a model axis > 1 (tensor parallelism) is not ported yet "
+            "(ROADMAP A16b)")
+    return model_n
+
+
 @dataclasses.dataclass
 class _Shard:
     """One leaf split along ``dim`` into ``n`` parts over ``group``; this
-    rank holds part ``index``. ``pod_group`` (``hier`` on a pod mesh) sums
-    the reduced shard across pods."""
+    rank holds part ``index``. On a pod mesh under ``hier``, ``pod_group``
+    joins this rank to its peers in the other pods: with ``pod_n`` > 1 the
+    reduced part is split again across the pods (this rank keeps part
+    ``pod_index`` of it), with ``pod_n`` 1 it is summed across them.
+    ``clip_group`` spans the ranks whose parts make up the whole leaf."""
     dim: int
     group: Any
     n: int
     index: int
+    clip_group: Any
     pod_group: Any = None
+    pod_n: int = 1
+    pod_index: int = 0
 
     def take(self, x):
         """This rank's part of a full tensor (a view)."""
-        k = x.shape[self.dim] // self.n
-        return x.narrow(self.dim, self.index * k, k)
+        k = x.shape[self.dim] // (self.n * self.pod_n)
+        return x.narrow(self.dim, (self.index * self.pod_n + self.pod_index)
+                        * k, k)
 
     def scatter(self, g):
-        """The summed gradient's part for this rank, in g's layout."""
-        moved = g.movedim(self.dim, 0).contiguous()
-        out = torch.empty((moved.shape[0] // self.n,) + moved.shape[1:],
-                          dtype=g.dtype, device=g.device)
-        reduce_scatter(out, moved, self.group)
+        """The summed gradient's part for this rank, contiguous in g's dim
+        order (so that the clip's sums read every path's gradients in one
+        order)."""
+        out = _rows(reduce_scatter, g.movedim(self.dim, 0).contiguous(),
+                    self.n, self.group)
         if self.pod_group is not None:
-            dist.all_reduce(out, group=self.pod_group)
-        return out.movedim(0, self.dim)
+            if self.pod_n > 1:
+                out = _rows(reduce_scatter, out, self.pod_n, self.pod_group)
+            else:
+                all_reduce(out, self.pod_group)
+        return out.movedim(0, self.dim).contiguous()
 
     def gather(self, part):
         """Every rank's part, concatenated back along ``dim``."""
         moved = part.movedim(self.dim, 0).contiguous()
-        out = torch.empty((moved.shape[0] * self.n,) + moved.shape[1:],
-                          dtype=part.dtype, device=part.device)
-        return all_gather(out, moved, self.group).movedim(0, self.dim) \
-            .contiguous()
+        if self.pod_n > 1:
+            moved = _rows(all_gather, moved, self.pod_n, self.pod_group)
+        return _rows(all_gather, moved, self.n, self.group) \
+            .movedim(0, self.dim).contiguous()
+
+
+def _rows(collective, x, n: int, group):
+    """``reduce_scatter`` (n times fewer rows out) or ``all_gather`` (n
+    times more) of ``x`` over ``group`` into a new tensor."""
+    rows = x.shape[0] // n if collective is reduce_scatter else \
+        x.shape[0] * n
+    out = torch.empty((rows,) + x.shape[1:], dtype=x.dtype, device=x.device)
+    return collective(out, x, group)
+
+
+class _Gather(torch.autograd.Function):
+    """ZeRO-3's gather of a parameter part; its backward reduce-scatters
+    the full gradient back to this rank's part (summed over the ranks)."""
+
+    @staticmethod
+    def forward(ctx, part, shard):
+        ctx.shard = shard
+        return shard.gather(part)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard.scatter(g), None
 
 
 @dataclasses.dataclass
-class TrainStep:
-    """``step(params, opt_state, local_batch) -> (params, opt_state,
-    loss)``, called by every rank of the mesh with its rows of the global
-    batch (``local_batch``). Params are replicated; each split leaf's
-    moments in ``opt_state`` hold this rank's part (``init_opt_state``,
-    ``shard_opt_state`` and ``gather_opt_state`` move between that and the
-    full state)."""
+class _Sharded:
+    """A ZeRO-3 part as the model sees it: a stacked leaf's part unbinds
+    into per-layer parts, and ``gather`` (the layer hook) gathers one."""
+    part: Any
+    shard: _Shard
+
+    def unbind(self):
+        layer = dataclasses.replace(self.shard, dim=self.shard.dim - 1)
+        return [_Sharded(x, layer) for x in torch.unbind(self.part, 0)]
+
+    def gather(self):
+        return _Gather.apply(self.part, self.shard)
+
+
+@dataclasses.dataclass
+class _Step:
+    """What every step shares: the config, this rank's place in the
+    global batch and, under ``fsdp``, the ZeRO-3 split of each parameter
+    leaf (None where the leaf stays whole)."""
     cfg: ModelConfig
-    optimizer: AdamW
-    shards: List[Optional[_Shard]]       # per param leaf, in leaves order
-    shard_group: Any                     # the group the shards split over
-    group: Any                           # every data-like rank
+    fsdp: List[Optional[_Shard]]      # per param leaf, in leaves order
+    stacked: List[bool]               # gathered per layer (else at start)
+    group: Any                        # every data-like rank
     n_data: int
     index: int
 
     def local_batch(self, batch):
         """This rank's contiguous rows of a global batch (a tree of numpy
-        arrays or tensors); a batch that does not divide stays whole."""
+        arrays or tensors); a batch that does not divide stays whole, as
+        ``distributed.sharding.batch_specs`` leaves it replicated."""
         def rows(x):
-            b = x.shape[0]
-            if b % self.n_data:
+            if not len(x.shape) or x.shape[0] % self.n_data:
                 return x
-            k = b // self.n_data
+            k = x.shape[0] // self.n_data
             return x[self.index * k:(self.index + 1) * k]
         return T.tree_map(rows, batch)
 
-    def _parts(self, tree):
-        return T.unflatten(tree, [x if s is None else s.take(x)
-                                  for x, s in zip(T.leaves(tree),
-                                                  self.shards)])
+    def shard_params(self, params):
+        """Full parameters -> what this rank holds: its part (copied) of
+        every ZeRO-3 leaf, the other leaves as they are."""
+        return T.unflatten(params, [
+            x if z is None else z.take(x).clone()
+            for x, z in zip(T.leaves(params), self.fsdp)])
+
+    def gather_params(self, params):
+        """What this rank holds -> the full parameters, on every rank."""
+        return T.unflatten(params, [
+            x if z is None else z.gather(x)
+            for x, z in zip(T.leaves(params), self.fsdp)])
+
+    def model_params(self, params):
+        """The tree the model takes: unstacked ZeRO-3 leaves gathered
+        here, stacked ones as per-layer parts for the layer hook."""
+        return T.unflatten(params, [
+            x if z is None else (_Sharded(x, z) if st else
+                                 _Gather.apply(x, z))
+            for x, z, st in zip(T.leaves(params), self.fsdp, self.stacked)])
+
+
+@dataclasses.dataclass
+class TrainStep(_Step):
+    """``step(params, opt_state, local_batch) -> (params, opt_state,
+    loss)``, called by every rank of the mesh with its rows of the global
+    batch (``local_batch``). ``params`` are what this rank holds (replicated
+    without ``fsdp``; ``shard_params`` of the full ones with it); each
+    split leaf's moments in ``opt_state`` hold this rank's part
+    (``init_opt_state``, ``shard_opt_state`` and ``gather_opt_state`` move
+    between that and the full state)."""
+    optimizer: AdamW = None
+    shards: List[Optional[_Shard]] = None  # the gradient split, non-ZeRO-3
+
+    def _state_shards(self):
+        return [z or s for z, s in zip(self.fsdp, self.shards)]
+
+    def _held_parts(self, params):
+        """This rank's optimizer parts of the parameters it holds."""
+        return T.unflatten(params, [
+            x if z is not None or s is None else s.take(x)
+            for x, z, s in zip(T.leaves(params), self.fsdp, self.shards)])
 
     def init_opt_state(self, params) -> AdamWState:
-        return self.optimizer.init(self._parts(params))
+        return self.optimizer.init(self._held_parts(params))
 
     def shard_opt_state(self, state: AdamWState) -> AdamWState:
         """A full optimizer state (a checkpoint's) -> this rank's parts,
         copied."""
-        part = lambda t: T.tree_map(lambda x: x.clone(),  # noqa: E731
-                                    self._parts(t))
+        def part(t):
+            return T.unflatten(t, [x.clone() if s is None else
+                                   s.take(x).clone() for x, s in
+                                   zip(T.leaves(t), self._state_shards())])
         return AdamWState(step=state.step, mu=part(state.mu),
                           nu=part(state.nu))
 
@@ -140,30 +249,80 @@ class TrainStep:
         def full(t):
             return T.unflatten(t, [x.clone() if s is None else s.gather(x)
                                    for x, s in zip(T.leaves(t),
-                                                   self.shards)])
+                                                   self._state_shards())])
         return AdamWState(step=state.step, mu=full(state.mu),
                           nu=full(state.nu))
 
     def __call__(self, params, opt_state: AdamWState, batch):
-        loss, grads = T.value_and_grad(
-            lambda p, b: registry.loss_fn(p, self.cfg, b))(params, batch)
+        loss, grads = T.value_and_grad(lambda p, b: registry.loss_fn(
+            self.model_params(p), self.cfg, b))(params, batch)
         gl = T.leaves(grads)
-        del grads
-        for i, s in enumerate(self.shards):
-            if s is None:
-                dist.all_reduce(gl[i], group=self.group)
+        for i, (z, s) in enumerate(zip(self.fsdp, self.shards)):
+            if z is not None:       # summed into this part by the gathers
                 gl[i] = gl[i] / self.n_data
+            elif s is None:
+                gl[i] = all_reduce(gl[i], self.group) / self.n_data
             else:
                 gl[i] = s.scatter(gl[i]) / self.n_data
-        sharded = T.unflatten(params, [s is not None for s in self.shards])
+        over = [None if s is None else s.clip_group
+                for s in self._state_shards()]
         new_parts, opt_state = self.optimizer.update(
-            T.unflatten(params, gl), opt_state, self._parts(params),
-            group=self.shard_group, sharded=sharded)
+            T.unflatten(params, gl), opt_state, self._held_parts(params),
+            sharded=T.unflatten(params, over))
         del gl
         new = [x if s is None else s.gather(x)
                for x, s in zip(T.leaves(new_parts), self.shards)]
-        dist.all_reduce(loss, group=self.group)
+        all_reduce(loss, self.group)
         return T.unflatten(params, new), opt_state, loss / self.n_data
+
+
+@dataclasses.dataclass
+class PrefillStep(_Step):
+    """``step(params, local_batch, max_seq=None) -> (logits, cache)``:
+    ``registry.prefill`` on this rank's rows, with no gradient; ``max_seq``
+    sizes the cache for the decode that follows (the prompt's length by
+    default, as in the reference)."""
+
+    def __call__(self, params, batch, max_seq: Optional[int] = None):
+        with torch.no_grad():
+            return registry.prefill(self.model_params(params), self.cfg,
+                                    batch, max_seq=max_seq)
+
+
+@dataclasses.dataclass
+class ServeStep(_Step):
+    """``step(params, cache, pos, tokens) -> (logits, cache)``: one new
+    token per row of this rank's (b, 1) ``tokens`` against its rows of a
+    ``max_seq`` cache (``registry.decode_step``), with no gradient."""
+
+    def __call__(self, params, cache, pos, tokens):
+        with torch.no_grad():
+            return registry.decode_step(self.model_params(params), self.cfg,
+                                        cache, pos, tokens)
+
+
+def _base(cfg: ModelConfig, mesh, fsdp: bool) -> dict:
+    """The fields of ``_Step`` for ``mesh``: the ZeRO-3 split of each leaf
+    of at least ``FSDP_MIN_SIZE`` elements over every data-like rank when
+    ``fsdp``."""
+    pshapes = registry.init(0, cfg, device="meta")
+    model_n = _model_axis(mesh)
+    group, n_data = data_group(mesh), data_size(mesh)
+    paths = [p for p, _ in T.leaves_with_path(pshapes)]
+    split = [None] * len(paths)
+    if fsdp:
+        pspecs = param_specs(pshapes, model_size=model_n,
+                             fsdp_axis=data_axes(mesh),
+                             fsdp_min_size=FSDP_MIN_SIZE, fsdp_divisor=n_data)
+        index = data_index(mesh)
+        for i, spec in enumerate(T.leaves(pspecs)):
+            where = placement(spec, model_n)
+            if where is not None:
+                split[i] = _Shard(dim=where[0], group=group, n=n_data,
+                                  index=index, clip_group=group)
+    return dict(cfg=cfg, fsdp=split,
+                stacked=[is_stacked(p) for p in paths],
+                group=group, n_data=n_data, index=data_index(mesh))
 
 
 def make_train_step(cfg: ModelConfig, mesh, *, strategy: str = "hier",
@@ -171,36 +330,57 @@ def make_train_step(cfg: ModelConfig, mesh, *, strategy: str = "hier",
                     optimizer: Optional[AdamW] = None) -> TrainStep:
     """The training step of ``strategy`` over ``mesh`` (see the module
     docstring); every rank of the mesh builds it together."""
-    if fsdp:
-        raise NotImplementedError(
-            "fsdp=True (ZeRO-3 parameters) is not ported yet (ROADMAP A16)")
-    model_n = axis_size(mesh, "model")
-    if model_n != 1:
-        raise NotImplementedError(
-            "a model axis > 1 (tensor parallelism) is not ported yet "
-            "(ROADMAP A16)")
-    opt = optimizer or AdamW(lr=3e-4)
     gaxes = _grad_axes(mesh, strategy)
-    group = data_group(mesh)
-    n_data = data_size(mesh)
     pshapes = registry.init(0, cfg, device="meta")
-    shards = [None] * len(T.leaves(pshapes))
-    g = None
+    base = _base(cfg, mesh, fsdp)
+    shards = [None] * len(base["fsdp"])
     if gaxes:
         # the reference's ZeRO layout: gradients constrained to the
         # reduce-scatter placement of these specs
-        zspecs = param_specs(pshapes, model_size=model_n, fsdp_axis=gaxes,
+        zspecs = param_specs(pshapes, model_size=1, fsdp_axis=gaxes,
                              fsdp_min_size=2 ** 14,
-                             fsdp_divisor=(n_data if strategy == "hier1"
-                                           else axis_size(mesh, "data")))
+                             fsdp_divisor=(base["n_data"] if strategy ==
+                                           "hier1" else
+                                           axis_size(mesh, "data")))
         two_level = strategy == "hier" and axis_size(mesh, "pod") > 1
-        g = mesh.get_group("data") if strategy == "hier" else group
-        for i, spec in enumerate(T.leaves(zspecs)):
-            where = placement(spec, model_n)
-            if where is not None:
-                shards[i] = _Shard(
-                    dim=where[0], group=g, n=dist.get_world_size(g),
-                    index=dist.get_rank(g),
-                    pod_group=mesh.get_group("pod") if two_level else None)
-    return TrainStep(cfg=cfg, optimizer=opt, shards=shards, shard_group=g,
-                     group=group, n_data=n_data, index=data_index(mesh))
+        g = mesh.get_group("data") if strategy == "hier" else base["group"]
+        n_pod = axis_size(mesh, "pod") if two_level else 1
+        for i, (spec, leaf) in enumerate(zip(T.leaves(zspecs),
+                                             T.leaves(pshapes))):
+            where = placement(spec, 1)
+            if where is None or base["fsdp"][i] is not None:
+                continue
+            n = dist.get_world_size(g)
+            pod_n = n_pod if leaf.shape[where[0]] % (n * n_pod) == 0 else 1
+            shards[i] = _Shard(
+                dim=where[0], group=g, n=n, index=dist.get_rank(g),
+                clip_group=base["group"] if pod_n > 1 else g,
+                pod_group=mesh.get_group("pod") if two_level else None,
+                pod_n=pod_n,
+                pod_index=axis_index(mesh, "pod") if pod_n > 1 else 0)
+    return TrainStep(**base, optimizer=optimizer or AdamW(lr=3e-4),
+                     shards=shards)
+
+
+def make_prefill_step(cfg: ModelConfig, mesh, *,
+                      fsdp: bool = False) -> PrefillStep:
+    """step(params, local_batch, max_seq=None) -> (logits, cache)."""
+    return PrefillStep(**_base(cfg, mesh, fsdp))
+
+
+def make_serve_step(cfg: ModelConfig, mesh, *,
+                    fsdp: bool = False) -> ServeStep:
+    """step(params, cache, pos, tokens) -> (logits, cache): ONE new token
+    against a max_seq KV/SSM cache."""
+    return ServeStep(**_base(cfg, mesh, fsdp))
+
+
+def decode_cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
+                        extras_shapes=None):
+    """The decode cache as meta tensors (``registry.init_decode_cache`` on
+    meta parameters: nothing is allocated). ``extras_shapes`` holds the vlm
+    and audio models' modality inputs (``configs.batch_extras``)."""
+    pshapes = registry.init(0, cfg, device="meta")
+    with torch.no_grad():
+        return registry.init_decode_cache(pshapes, cfg, batch, max_seq,
+                                          batch_extras=extras_shapes)

@@ -6,8 +6,8 @@
 trains with the ``hier`` step (``--strategy hier|hier1|allreduce``, see
 ``launch/steps.py``) on every rank of the process group, one rank when
 none is initialised. Runs on the CUDA card unless ``--device`` says
-otherwise. (The reference's ``--dry-run`` lowering check waits for the
-dry-run tools, ROADMAP A16.)
+otherwise. ``--dry-run`` points at the dry run, ``python -m
+repro_torch.launch.dryrun``, as the reference's does.
 """
 from __future__ import annotations
 
@@ -34,20 +34,23 @@ def make_local_mesh(device="cuda"):
 
 def train(cfg, *, steps: int, batch: int, seq: int, strategy: str,
           lr: float = 3e-4, log_every: int = 10, loader=None, params=None,
-          device="cuda"):
+          device="cuda", fsdp: bool = False):
     """Train ``cfg`` for ``steps`` steps of a global batch of ``batch`` x
     ``seq`` tokens, each rank of the process group on its rows (a one-rank
-    group is made, and destroyed on return, when none is initialised).
-    ``params`` (e.g. the reference's, carried across) replaces the
-    seed-0 init. Returns (params, losses, step seconds), each step timed
-    on the host clock up to its loss read back."""
+    group is made, and destroyed on return, when none is initialised),
+    with ZeRO-3 parameters under ``fsdp``. ``params`` (e.g. the
+    reference's, carried across) replaces the seed-0 init. Returns (the
+    full params, losses, step seconds), each step timed on the host clock
+    up to its loss read back."""
     dev = T.resolve_device(device)
     with process_group(dev):
         mesh = make_local_mesh(dev)
         opt = AdamW(lr=lr, schedule=warmup_cosine(max(steps // 20, 1), steps))
-        step_fn = make_train_step(cfg, mesh, strategy=strategy, optimizer=opt)
+        step_fn = make_train_step(cfg, mesh, strategy=strategy, fsdp=fsdp,
+                                  optimizer=opt)
         if params is None:
             params = registry.init(0, cfg, dev)
+        params = step_fn.shard_params(params)
         opt_state = step_fn.init_opt_state(params)
 
         loader = loader or ShardedLoader(TokenDataset(DataConfig(
@@ -67,6 +70,7 @@ def train(cfg, *, steps: int, batch: int, seq: int, strategy: str,
                 tput = (i + 1) * batch * seq / dt
                 print(f"step {i:5d}  loss {losses[-1]:.4f}  "
                       f"{tput:,.0f} tok/s", flush=True)
+        params = step_fn.gather_params(params)
     return params, losses, step_s
 
 
@@ -81,7 +85,14 @@ def main(argv=None):
     ap.add_argument("--strategy", default="hier",
                     choices=["hier", "hier1", "allreduce"])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="see python -m repro_torch.launch.dryrun")
     args = ap.parse_args(argv)
+    if args.dry_run:
+        raise SystemExit(
+            "the dry run is its own entry point: python -m "
+            "repro_torch.launch.dryrun --arch ARCH --shape SHAPE "
+            "[--device cpu] (or --all)")
 
     cfg = ARCHS[args.arch]
     if args.reduced:

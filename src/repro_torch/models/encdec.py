@@ -71,7 +71,8 @@ def encode(params, cfg: ModelConfig, audio_frames):
 
 def cross_kv(params, cfg: ModelConfig, enc_out):
     """The decoder's cross-attention K/V, stacked: (L, b, f, kv, hd)."""
-    return L.stacked_kv(params["decoder"]["cross_attn"], cfg, enc_out)
+    return T.stacked_kv(params["decoder"]["cross_attn"], cfg, enc_out,
+                        cfg.n_layers)
 
 
 def apply_dec_block(bp, cfg: ModelConfig, h, ckv, *, positions=None,
@@ -95,8 +96,10 @@ def decode_stack(params, cfg: ModelConfig, tokens, ckv, *, positions=None,
     body = T.remat_wrap(cfg, lambda h, x, c: apply_dec_block(
         x["block"], cfg, h, x["kv"], positions=positions, cache=c,
         cache_index=cache_index))
-    h, new_cache = T.run_layers(h, {"block": params["decoder"], "kv": ckv},
-                                cache, cfg.n_layers, body)
+    blocks = dict(params["decoder"],
+                  cross_attn=L.cross_query(params["decoder"]["cross_attn"]))
+    h, new_cache = T.run_layers(h, {"block": blocks, "kv": ckv}, cache,
+                                cfg.n_layers, body)
     h = L.apply_norm(params["final_norm"], cfg, h)
     return L.unembed(params["embed"], cfg, h), new_cache
 

@@ -155,7 +155,7 @@ def forward_full(params, cfg: ModelConfig, tokens, *, mamba_cache=None,
         new_m += ncs
         rings.append(kv)
     for bp, c in zip(bps[ng * per:], caches[ng * per:]):  # the remainder
-        h, nc = M.apply_mamba_block(bp, cfg, h, cache=c)
+        h, nc = M.apply_mamba_block(T.gather_layer(bp), cfg, h, cache=c)
         new_m.append(nc)
     h = L.apply_norm(params["final_norm"], cfg, h)
     logits = L.unembed(params["embed"], cfg, h)
@@ -191,7 +191,7 @@ def decode_step(params, cfg: ModelConfig, cache, pos: int, tokens):
     rings = T.unbind_layers(cache["attn"], n_groups(cfg)[0])
     new_m, new_rings = [], []
     for i, (bp, c) in enumerate(zip(bps, caches)):
-        h, nc = M.apply_mamba_decode(bp, cfg, h, c)
+        h, nc = M.apply_mamba_decode(T.gather_layer(bp), cfg, h, c)
         new_m.append(nc)
         if (i + 1) % cfg.attn_every == 0:
             h, ring = shared_attn_decode(params["shared"], cfg, h,

@@ -218,17 +218,6 @@ def apply_attention(params, cfg: ModelConfig, x, *, positions=None,
     return out, new_cache
 
 
-def stacked_kv(attn, cfg: ModelConfig, memory):
-    """Cross-attention keys and values of ``memory`` (b, m, d_model) for
-    every layer of a stacked attention's wk / wv: {"k", "v"}, each
-    (L, b, m, kv, hd). Computed once; decode reads them from its cache."""
-    b, m, _ = memory.shape
-    shape = (b, m, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {name: torch.stack([(memory @ w).reshape(shape)
-                               for w in torch.unbind(attn[key], 0)])
-            for name, key in (("k", "wk"), ("v", "wv"))}
-
-
 def cross_attention(attn, cfg: ModelConfig, x, kv):
     """x's queries against precomputed keys and values ``kv`` ({"k", "v"},
     (b, m, kv, hd)): no rope, no mask, never the flash kernel (it is
@@ -240,6 +229,13 @@ def cross_attention(attn, cfg: ModelConfig, x, kv):
     v = _repeat_kv(kv["v"], cfg.n_heads // cfg.n_kv_heads)
     o = blockwise_attention(q, k, v, causal=False)
     return o.reshape(b, s, cfg.n_heads * hd) @ attn["wo"]
+
+
+def cross_query(attn):
+    """The parameters of a cross-attention that ``cross_attention`` reads
+    in its layer: all but the wk / wv that ``transformer.stacked_kv`` has
+    used once (so that a ZeRO-3 layer hook does not gather them again)."""
+    return {k: v for k, v in attn.items() if k not in ("wk", "wv")}
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, device):

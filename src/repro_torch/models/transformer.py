@@ -32,19 +32,39 @@ def _dots_contexts():
     return ckpt.create_selective_checkpoint_contexts(_save_dots)
 
 
+def gather_layer(tree):
+    """The layer hook: one layer's parameters as the layer uses them. The
+    identity, except inside a ZeRO-3 step (``launch/steps.py``), which
+    hands the layer loops per-layer shards (objects with a ``gather``
+    method, not tensors) that are all-gathered here, just before the layer
+    runs. Walks dicts, lists and tuples; tensors pass as they are."""
+    if isinstance(tree, dict):
+        return {k: gather_layer(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather_layer(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree
+    gather = getattr(tree, "gather", None)
+    return tree if gather is None else gather()
+
+
 def remat_wrap(cfg: ModelConfig, body):
-    """With ``cfg.remat``, ``body(*args)`` keeps none of its activations
-    for the backward and recomputes them there (``remat_policy`` "full"),
-    or keeps only its projections' outputs ("dots"), as the reference's
-    ``jax.checkpoint``. A flash-kernel forward inside ``body`` runs again
-    in the recompute."""
+    """The layer body: ``body(*args)`` on its layer's parameters, taken
+    through ``gather_layer``. With ``cfg.remat`` it keeps none of its
+    activations for the backward and recomputes them there
+    (``remat_policy`` "full"), or keeps only its projections' outputs
+    ("dots"), as the reference's ``jax.checkpoint``; the gather is inside
+    the checkpoint, so a ZeRO-3 backward gathers again. A flash-kernel
+    forward inside ``body`` runs again in the recompute."""
+    def layer(*args):
+        return body(*gather_layer(args))
     if not cfg.remat:
-        return body
+        return layer
     context_fn = (_dots_contexts if cfg.remat_policy == "dots"
                   else ckpt.noop_context_fn)
 
     def wrapped(*args):
-        return ckpt.checkpoint(body, *args, use_reentrant=False,
+        return ckpt.checkpoint(layer, *args, use_reentrant=False,
                                context_fn=context_fn)
     return wrapped
 
@@ -92,9 +112,12 @@ def init(normal, cfg: ModelConfig, device):
 
 
 def unbind_layers(tree, n: int):
-    """A stacked tree -> n per-layer trees (views, one unbind per leaf)."""
+    """A stacked tree -> n per-layer trees (views, one unbind per leaf). A
+    leaf that is not a tensor (a ZeRO-3 step's shards of a stacked leaf)
+    unbinds itself into per-layer shards for ``gather_layer``."""
     ls = T.leaves(tree)
-    per_leaf = [torch.unbind(x, 0) for x in ls]
+    per_leaf = [torch.unbind(x, 0) if isinstance(x, torch.Tensor)
+                else x.unbind() for x in ls]
     return [T.unflatten(tree, [u[i] for u in per_leaf]) for i in range(n)]
 
 
@@ -111,6 +134,20 @@ def run_layers(h, blocks, cache, n: int, apply):
     if cache is None:
         return h, None
     return h, {k: torch.stack([c[k] for c in new_caches]) for k in cache}
+
+
+def stacked_kv(attn, cfg: ModelConfig, memory, n: int):
+    """Cross-attention keys and values of ``memory`` (b, m, d_model) for
+    each of the n layers of a stacked attention's wk / wv, each layer's
+    weights taken through ``gather_layer``: {"k", "v"}, each (n, b, m, kv,
+    hd). Computed once; decode reads them from its cache."""
+    b, m, _ = memory.shape
+    shape = (b, m, cfg.n_kv_heads, cfg.resolved_head_dim)
+    ws = [gather_layer(w) for w in
+          unbind_layers({"k": attn["wk"], "v": attn["wv"]}, n)]
+    return {name: torch.stack([(memory @ w[name]).reshape(shape)
+                               for w in ws])
+            for name in ("k", "v")}
 
 
 def _run_blocks(params, cfg: ModelConfig, h, *, positions=None, cache=None,

@@ -55,7 +55,8 @@ def image_kv_from_embeds(params, cfg: ModelConfig, image_embeds):
     compute each group's cross K/V: (b, n_img, d_vision) -> stacked
     {"k", "v"}: (G, b, n_img, kv, hd)."""
     x = image_embeds.to(cfg.dtype) @ params["vision_proj"]
-    return L.stacked_kv(params["cross"]["attn"], cfg, x)
+    return T.stacked_kv(params["cross"]["attn"], cfg, x,
+                        group_shape(cfg)[0])
 
 
 def init(normal, cfg: ModelConfig, device):
@@ -81,7 +82,8 @@ def forward(params, cfg: ModelConfig, tokens, image_kv, *, positions=None,
     bps = T.unbind_layers(params["blocks"], ng * per_self)
     caches = (T.unbind_layers(self_cache, ng * per_self)
               if self_cache is not None else [None] * (ng * per_self))
-    cross = T.unbind_layers({"block": params["cross"], "kv": image_kv}, ng)
+    blocks = dict(params["cross"], attn=L.cross_query(params["cross"]["attn"]))
+    cross = T.unbind_layers({"block": blocks, "kv": image_kv}, ng)
 
     def group(h, g_bps, g_caches, x):
         ncs = []

@@ -16,6 +16,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import tree as T
+from repro_torch.core.hier_sync import all_reduce
 
 
 @dataclasses.dataclass
@@ -40,28 +41,31 @@ class AdamW:
         return AdamWState(step=0, mu=T.tree_map(zeros, params),
                           nu=T.tree_map(zeros, params))
 
-    def update(self, grads, state: AdamWState, params, *, group=None,
-               sharded=None):
+    def update(self, grads, state: AdamWState, params, *, sharded=None):
         """-> (new params, state); ``state``'s moments are updated in place.
 
-        Under sharded state (``launch/steps.py``'s ``hier``), the leaves
-        that ``sharded`` (a tree of bools like ``grads``) flags hold this
-        rank's shard of a tensor split over the process group ``group``;
-        the clip's sum of their squares is summed over the group, so every
-        rank clips by the global norm. The other leaves are replicated and
-        counted once."""
+        Under sharded state (``launch/steps.py``'s ``hier`` and ZeRO-3
+        steps), ``sharded`` (a tree like ``grads``) gives each leaf that
+        holds this rank's part of a tensor the process group it is split
+        over, and None for a replicated leaf. The clip's sum of squares of
+        the split leaves is summed over each group, so every rank clips by
+        the global norm; the replicated leaves are counted once."""
         step = state.step + 1
         scale = None
         if self.grad_clip:
             sq = [torch.sum(torch.square(g.float())) for g in T.leaves(grads)]
-            if group is None:
-                total = sum(sq)
-            else:
-                flags = T.leaves(sharded)
-                total = sum((x for x, f in zip(sq, flags) if f),
-                            torch.zeros_like(sq[0]))
-                dist.all_reduce(total, group=group)
-                total = total + sum(x for x, f in zip(sq, flags) if not f)
+            groups = (T.leaves(sharded) if sharded is not None
+                      else [None] * len(sq))
+            # a group is its ranks: two handles on one group sum as one
+            keys = [None if g is None
+                    else tuple(dist.get_process_group_ranks(g))
+                    for g in groups]
+            total = torch.zeros_like(sq[0])
+            for key in dict.fromkeys(k for k in keys if k is not None):
+                part = sum((x for x, k in zip(sq, keys) if k == key),
+                           torch.zeros_like(sq[0]))
+                total = total + all_reduce(part, groups[keys.index(key)])
+            total = total + sum(x for x, k in zip(sq, keys) if k is None)
             gnorm = torch.sqrt(total)
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         b1, b2 = self.b1, self.b2

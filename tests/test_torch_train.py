@@ -50,7 +50,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_dist_checks as dc  # noqa: E402
 
 STEPS, BATCH, SEQ = dc.TRAIN_STEPS, dc.TRAIN_BATCH, dc.TRAIN_SEQ
-SHORT = 10                  # steps of the moment checks
+SHORT = dc.TRAIN_SHORT      # steps of the moment checks
 CURVE_RTOL = 1e-4
 
 
@@ -58,15 +58,14 @@ def _numpy(tree):
     return [np.array(x) for x in jax.tree.leaves(tree)]
 
 
-@pytest.fixture(scope="module")
-def ref():
-    """The reference: its train() curve, and the params and moments after
-    SHORT steps of the same run through its make_train_step."""
-    cfg = j_reduced(J_ARCHS["olmo-1b"])
+def _ref_steps(arch, n, snap=None):
+    """The reference's seed-0 weights of reduced ``arch``, its losses over
+    ``n`` steps of its ``hier`` make_train_step with launch/train.py's
+    40-step optimizer and data, and its params and moments after ``snap``
+    of them (default all)."""
+    cfg = j_reduced(J_ARCHS[arch])
     init = jreg.init(jax.random.key(0), cfg)
-    init_np = jax.tree.map(np.array, init)
-    _, curve = jtrain.train(cfg, steps=STEPS, batch=BATCH, seq=SEQ,
-                            strategy="hier", log_every=STEPS)
+    init_np = jax.tree.map(np.array, init)   # the step donates its inputs
     opt = JAdamW(lr=3e-4, schedule=j_warmup_cosine(2, STEPS))
     step, pshard, oshard, _ = j_make_step(cfg, jtrain.make_local_mesh(),
                                           strategy="hier", optimizer=opt)
@@ -74,19 +73,43 @@ def ref():
     state = jax.device_put(opt.init(params), oshard)
     loader = JLoader(JDataset(JDataConfig(vocab_size=cfg.vocab_size,
                                           seq_len=SEQ)))
-    for _ in range(SHORT):
+    out = dict(init=init_np)
+    losses = []
+    for i in range(n):
         b = {k: jnp.asarray(v) for k, v in loader.next_batch(BATCH).items()}
-        params, state, _ = step(params, state, b)
-    return dict(init=init_np, curve=np.array(curve), params=_numpy(params),
-                mu=_numpy(state.mu), nu=_numpy(state.nu))
+        params, state, loss = step(params, state, b)
+        losses.append(float(loss))
+        if i + 1 == (snap or n):
+            out.update(params=_numpy(params), mu=_numpy(state.mu),
+                       nu=_numpy(state.nu))
+    return dict(out, losses=np.array(losses))
 
 
 @pytest.fixture(scope="module")
-def ranks(ref, tmp_path_factory):
+def ref():
+    """The reference: its train() curve, and the params and moments after
+    SHORT steps of the same run through its make_train_step."""
+    cfg = j_reduced(J_ARCHS["olmo-1b"])
+    _, curve = jtrain.train(cfg, steps=STEPS, batch=BATCH, seq=SEQ,
+                            strategy="hier", log_every=STEPS)
+    return dict(_ref_steps("olmo-1b", SHORT), curve=np.array(curve))
+
+
+@pytest.fixture(scope="module")
+def ref_hybrid():
+    """SHORT steps of the reduced hybrid (dc.HYBRID_ARCH): its weights,
+    losses, and state after the first step."""
+    return _ref_steps(dc.HYBRID_ARCH, SHORT, snap=1)
+
+
+@pytest.fixture(scope="module")
+def ranks(ref, ref_hybrid, tmp_path_factory):
     """Each of 4 gloo ranks' results (tests/torch_dist_checks.py
     suite_train)."""
     work = str(tmp_path_factory.mktemp("train4"))
     JDisk(work).save("ref_init", {"p": ref["init"]}, CheckpointMeta())
+    JDisk(work).save("ref_init_hybrid", {"p": ref_hybrid["init"]},
+                     CheckpointMeta())
     dc.run_world("train", 4, work, timeout=300)
     return [dc.load(work, f"train_rank{r}") for r in range(4)]
 
@@ -148,12 +171,40 @@ def test_clip_by_shard_norm_would_fail(ranks, ref):
                           ref["mu"], "mu")
 
 
-@pytest.mark.parametrize("strategy,n", [("hier", 2), ("hier1", 4)])
+def _part_index(strategy, rank):
+    """Which of the 4 parts rank ``rank`` of (pod 2, data 2) holds: under
+    ``hier`` its data coordinate's shard, split again across the pods;
+    under ``hier1`` its place in pod x data."""
+    pod, data = divmod(rank, 2)
+    return data * 2 + pod if strategy == "hier" else rank
+
+
+def _check_parts(mine, full, part_i, n):
+    """Each of this rank's leaves ``mine`` is either the whole of its
+    gathered leaf in ``full`` or its part ``part_i`` of ``n`` along one
+    dim; returns how many are parts."""
+    split = 0
+    for a, whole in zip(mine, full, strict=True):
+        if a.shape == whole.shape:
+            np.testing.assert_array_equal(a, whole)
+            continue
+        dims = [d for d in range(whole.ndim) if a.shape[d] != whole.shape[d]]
+        assert len(dims) == 1 and a.shape[dims[0]] * n == whole.shape[dims[0]]
+        k = a.shape[dims[0]]
+        np.testing.assert_array_equal(
+            a, np.take(whole, range(part_i * k, (part_i + 1) * k),
+                       axis=dims[0]))
+        split += 1
+    return split
+
+
+@pytest.mark.parametrize("strategy,n", [("hier", 4), ("hier1", 4)])
 def test_pod_mesh_state_holds_only_the_shard(ranks, ref, strategy, n):
-    """(pod 2, data 2): ``hier`` splits the moments over data (2 parts),
-    ``hier1`` over pod x data (4); each rank's part is its own slice of
-    the gathered state, and the curve and moments match the reference."""
-    full_shapes = [x.shape for x in ref["mu"]]
+    """(pod 2, data 2): ``hier`` splits the moments over data and then
+    across the pods, ``hier1`` over pod x data, 4 parts each, as the
+    reference's ``ospecs`` span pod x data; each rank's part is its own
+    slice of the gathered state, and the curve and moments match the
+    reference."""
     key = f"pod/{strategy}"
     split = 0
     for idx, r in enumerate(ranks):
@@ -161,20 +212,78 @@ def test_pod_mesh_state_holds_only_the_shard(ranks, ref, strategy, n):
                                    rtol=CURVE_RTOL)
         full = _leaves(r, key, "full_mu")
         _close_to_ref(full, ref["mu"], "mu")
-        part_i = idx % 2 if strategy == "hier" else idx   # data coordinate
-        for mine, whole, shape in zip(_leaves(r, key, "mu"), full,
-                                      full_shapes):
-            if mine.shape == shape:
-                np.testing.assert_array_equal(mine, whole)
-                continue
-            dims = [d for d in range(len(shape)) if mine.shape[d] != shape[d]]
-            assert len(dims) == 1 and mine.shape[dims[0]] * n == shape[dims[0]]
-            k = mine.shape[dims[0]]
-            np.testing.assert_array_equal(
-                mine, np.take(whole, range(part_i * k, (part_i + 1) * k),
-                              axis=dims[0]))
-            split += 1
+        split += _check_parts(_leaves(r, key, "mu"), full,
+                              _part_index(strategy, idx), n)
     assert split >= 4 * 5      # the large leaves are split on every rank
+
+
+def _check_fsdp_run(r, idx, key, want):
+    """A ZeRO-3 run on 4 ranks after SHORT steps: the gathered moments
+    and params match ``want``'s, and rank ``idx`` holds its quarter
+    (along one dim) of every leaf the specs split, and the whole of the
+    rest; returns how many leaves it holds a quarter of."""
+    _close_to_ref(_leaves(r, key, "full_mu"), want["mu"], "mu")
+    _close_to_ref(_leaves(r, key, "full_nu"), want["nu"], "nu")
+    full = _leaves(r, key, "params")
+    _close_to_ref(full, want["params"], "params")
+    return _check_parts(_leaves(r, key, "held"), full, idx, 4)
+
+
+@pytest.mark.parametrize("strategy", ["hier", "hier1", "allreduce"])
+def test_fsdp_gloo4_matches_reference_curve(ranks, ref, strategy):
+    """ZeRO-3 parameters (``fsdp=True``) on 4 ranks: the reference's
+    40-step curve."""
+    for r in ranks:
+        np.testing.assert_allclose(r[f"fsdp/{strategy}/curve"], ref["curve"],
+                                   rtol=CURVE_RTOL)
+
+
+def test_fsdp_gloo4_moments_params_and_shards(ranks, ref):
+    """ZeRO-3 ``hier`` on 4 ranks, after ten steps: the reference's
+    moments and params, each rank holding its quarter of every split
+    leaf."""
+    split = sum(_check_fsdp_run(r, idx, "fsdp/hier", ref)
+                for idx, r in enumerate(ranks))
+    assert split >= 4 * 5      # the large leaves are split on every rank
+
+
+@pytest.mark.parametrize("key", ["fsdp_remat/full", "fsdp_remat/dots",
+                                 "fsdp_pod/hier", "fsdp_pod/hier1"])
+def test_fsdp_remat_and_pod_mesh_match_reference(ranks, ref, key):
+    """ZeRO-3 under remat "full" and "dots" on (data 4), where the layer's
+    gather runs inside the checkpoint and again in the backward, and on
+    (pod 2, data 2) under ``hier`` and ``hier1``, where the parameters
+    split over pod x data: the reference's 40-step curve, and after ten
+    steps its moments and params, each rank holding its quarter of every
+    split leaf (its place in pod x data on the pod mesh)."""
+    split = 0
+    for idx, r in enumerate(ranks):
+        np.testing.assert_allclose(r[f"{key}/curve"], ref["curve"],
+                                   rtol=CURVE_RTOL)
+        split += _check_fsdp_run(r, idx, key, ref)
+    assert split >= 4 * 5
+
+
+def test_fsdp_gloo4_hybrid_matches_reference(ranks, ref_hybrid):
+    """Ten ZeRO-3 ``hier`` steps of the reduced hybrid on 4 ranks (its
+    mamba layers through the layer hook, its shared attention block
+    gathered at the start of the step): the reference's losses, its
+    moments after the first step, and each rank holding its quarter of
+    every split leaf. (The parameters are not compared: Adam's first
+    update is lr times the gradient's sign, which flips for a gradient
+    within rounding of zero; and later the hybrid's state drifts from the
+    reference's by up to 1 % of its largest magnitude with ZeRO-3 off
+    too, as the updates carry the first steps' f32 rounding along.)"""
+    key = "fsdp_hybrid/hier"
+    split = 0
+    for idx, r in enumerate(ranks):
+        np.testing.assert_allclose(r[f"{key}/curve"], ref_hybrid["losses"],
+                                   rtol=CURVE_RTOL)
+        _close_to_ref(_leaves(r, key, "full_mu"), ref_hybrid["mu"], "mu")
+        _close_to_ref(_leaves(r, key, "full_nu"), ref_hybrid["nu"], "nu")
+        split += _check_parts(_leaves(r, key, "held"),
+                              _leaves(r, key, "params"), idx, 4)
+    assert split >= 4 * 3
 
 
 def test_hier_step_world1_equals_loss_and_adamw():
@@ -199,14 +308,21 @@ def test_hier_step_world1_equals_loss_and_adamw():
 
 
 def test_unported_options_raise():
+    """``fsdp=True`` builds; a model axis > 1 (tensor parallelism) still
+    raises, naming the slice that ports it (A16b)."""
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_custom_mesh
     cfg = reduced(ARCHS["olmo-1b"])
     with process_group("cpu"):
         mesh = ttrain.make_local_mesh("cpu")
-        with pytest.raises(NotImplementedError, match="fsdp"):
-            make_train_step(cfg, mesh, fsdp=True)
+        assert make_train_step(cfg, mesh, fsdp=True).fsdp is not None
         with pytest.raises(ValueError, match="strategy"):
             make_train_step(cfg, mesh, strategy="ps")
-    with pytest.raises(NotImplementedError, match="model axis"):
+    with fake_world(2):
+        mesh = make_custom_mesh("1x2", "cpu")
+        with pytest.raises(NotImplementedError, match="model axis.*A16b"):
+            make_train_step(cfg, mesh)
+    with pytest.raises(NotImplementedError, match="model axis.*A16b"):
         placement(("data", "model"), model_size=2)
     assert placement((None, "model", "data"), model_size=1) == (2, "data")
     assert placement(("model",), model_size=1) is None

@@ -173,43 +173,65 @@ def suite_hier_sync(rank, world, workdir):
     _save(workdir, "hier_sync", rank, out)
 
 
-# the reference's 40-step run: tests/test_torch_train.py
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 40, 8, 128
+# the reference's 40-step run: tests/test_torch_train.py; its moments and
+# params are held after the first TRAIN_SHORT steps
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SHORT = 40, 8, 128, 10
+# the hybrid family's ZeRO-3 run (its shared block is gathered at the
+# start of a step, its remainder layers through the layer hook)
+HYBRID_ARCH = "zamba2-7b"
 
 
-def _run_steps(cfg, mesh, strategy, params, n_steps, out, key):
-    """``n_steps`` of make_train_step(strategy) on ``mesh`` with
+# ZeRO-3 runs split every leaf of this many elements or more (the
+# reference's 2**20 splits none of reduced olmo-1b's)
+FSDP_MIN_SIZE = 2 ** 12
+
+
+def _run_steps(cfg, mesh, strategy, params, n_steps, out, key, fsdp=False,
+               snap=None):
+    """``n_steps`` of make_train_step(strategy, fsdp) on ``mesh`` with
     launch/train.py's 40-step optimizer and data; into ``out`` under
-    ``key``: the losses, this rank's moments, the gathered moments and
-    the params."""
+    ``key``: the losses and, after ``snap`` steps (default all), this
+    rank's moments, the gathered moments, the full params and the params
+    this rank holds."""
     from repro_torch.core import tree as T
     from repro_torch.data import DataConfig, ShardedLoader, TokenDataset
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch import steps as steps_mod
     from repro_torch.optim import AdamW, warmup_cosine
     opt = AdamW(lr=3e-4, schedule=warmup_cosine(2, TRAIN_STEPS))
-    step = make_train_step(cfg, mesh, strategy=strategy, optimizer=opt)
+    steps_mod.FSDP_MIN_SIZE = FSDP_MIN_SIZE
+    step = steps_mod.make_train_step(cfg, mesh, strategy=strategy,
+                                     optimizer=opt, fsdp=fsdp)
+    params = step.shard_params(params)
     state = step.init_opt_state(params)
     loader = ShardedLoader(TokenDataset(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ)))
     losses = []
-    for _ in range(n_steps):
+    for i in range(n_steps):
         b = T.from_numpy(step.local_batch(loader.next_batch(TRAIN_BATCH)),
                          "cpu")
         params, state, loss = step(params, state, b)
         losses.append(float(loss))
-    full = step.gather_opt_state(state)
+        if i + 1 != (snap or n_steps):
+            continue
+        full = step.gather_opt_state(state)
+        for name, tree in (("mu", state.mu), ("full_mu", full.mu),
+                           ("full_nu", full.nu),
+                           ("params", step.gather_params(params)),
+                           ("held", params)):
+            for path, x in T.leaves_with_path(tree):
+                out[f"{key}/{name}/{path}"] = x.numpy()
     out[f"{key}/curve"] = np.array(losses)
-    for name, tree in (("mu", state.mu), ("full_mu", full.mu),
-                       ("full_nu", full.nu), ("params", params)):
-        for path, x in T.leaves_with_path(tree):
-            out[f"{key}/{name}/{path}"] = x.numpy()
 
 
 def suite_train(rank, world, workdir):
     """launch/train.py::train on 4 ranks from the reference's weights, per
     strategy; ten ``hier`` steps on (data 4), once more with a clip by
     each rank's own shard norm (what the group sum prevents); ten
-    ``hier`` and ``hier1`` steps on (pod 2, data 2)."""
+    ``hier`` and ``hier1`` steps on (pod 2, data 2). ZeRO-3 (``fsdp``):
+    40 steps on (data 4) per strategy, under ``hier`` with remat "full"
+    and "dots", on (pod 2, data 2) under ``hier`` and ``hier1``, each
+    with its state after ten steps; ten ZeRO-3 ``hier`` steps of the
+    reduced hybrid, with its state after the first."""
     from repro_torch.checkpoint import DiskCheckpointer
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.launch import train as train_mod
@@ -217,9 +239,12 @@ def suite_train(rank, world, workdir):
     from repro_torch.models import registry
     from repro_torch.optim import AdamW
 
+    def restore(name, cfg):
+        like = {"p": registry.init(0, cfg, "cpu")}
+        return DiskCheckpointer(workdir).restore(name, like)[0]["p"]
+
     cfg = reduced(ARCHS["olmo-1b"])
-    like = {"p": registry.init(0, cfg, "cpu")}
-    ref_params = DiskCheckpointer(workdir).restore("ref_init", like)[0]["p"]
+    ref_params = restore("ref_init", cfg)
     out = {}
     for strat in ("hier", "hier1", "allreduce"):
         _, losses, _ = train_mod.train(
@@ -229,18 +254,30 @@ def suite_train(rank, world, workdir):
         out[f"curve/{strat}"] = np.array(losses)
 
     data4 = make_custom_mesh("4x1", "cpu")
-    _run_steps(cfg, data4, "hier", ref_params, 10, out, "data4/hier")
+    _run_steps(cfg, data4, "hier", ref_params, TRAIN_SHORT, out, "data4/hier")
     update = AdamW.update
-    AdamW.update = lambda self, g, s, p, group=None, sharded=None: \
-        update(self, g, s, p)
+    AdamW.update = lambda self, g, s, p, sharded=None: update(self, g, s, p)
     try:
-        _run_steps(cfg, data4, "hier", ref_params, 10, out,
+        _run_steps(cfg, data4, "hier", ref_params, TRAIN_SHORT, out,
                    "data4/hier_shard_norm")
     finally:
         AdamW.update = update
     pod = make_custom_mesh("2x2x1", "cpu")
     for strat in ("hier", "hier1"):
-        _run_steps(cfg, pod, strat, ref_params, 10, out, f"pod/{strat}")
+        _run_steps(cfg, pod, strat, ref_params, TRAIN_SHORT, out,
+                   f"pod/{strat}")
+    runs = [(cfg, data4, strat, f"fsdp/{strat}")
+            for strat in ("hier", "hier1", "allreduce")]
+    runs += [(cfg.replace(remat=True, remat_policy=policy), data4, "hier",
+              f"fsdp_remat/{policy}") for policy in ("full", "dots")]
+    runs += [(cfg, pod, strat, f"fsdp_pod/{strat}")
+             for strat in ("hier", "hier1")]
+    for run_cfg, mesh, strat, key in runs:
+        _run_steps(run_cfg, mesh, strat, ref_params, TRAIN_STEPS, out, key,
+                   fsdp=True, snap=TRAIN_SHORT)
+    hybrid = reduced(ARCHS[HYBRID_ARCH])
+    _run_steps(hybrid, data4, "hier", restore("ref_init_hybrid", hybrid),
+               TRAIN_SHORT, out, "fsdp_hybrid/hier", fsdp=True, snap=1)
     _save(workdir, "train", rank, out)
 
 

@@ -1,0 +1,96 @@
+"""Run the port's dry run over every (arch, shape) pair on both production
+meshes, several pairs at a time, and print a markdown table of the
+per-rank terms.
+
+    PYTHONPATH=src python tools/dryrun_table.py --out experiments/dryrun \\
+        [--jobs 8] [--device cuda] [--arch ARCH ...]
+
+Each pair is one ``python -m repro_torch.launch.dryrun --arch A --shape S
+--both-meshes --out DIR`` process; together they are the CLI's ``--all
+--both-meshes`` (``--arch``, repeated, keeps only those archs' pairs).
+The table reads the per-pair JSON files. Exits 1, listing
+them, if any pair failed.
+"""
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+from repro_torch.configs import pairs  # noqa: E402
+
+
+def run_pair(arch: str, shape: str, out: str, device: str):
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--both-meshes", "--out", out, "--device",
+           device]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT)
+    with open(os.path.join(out, f"{arch}__{shape}.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    return arch, shape, proc.returncode
+
+
+def table(out: str) -> str:
+    """One row per (arch, shape): the per-rank terms on "256x1", and on
+    "2x256x1" where they differ (after a "/")."""
+    runs = {}
+    for path in sorted(glob.glob(os.path.join(out, "*.json"))):
+        with open(path) as f:
+            r = json.load(f)
+        runs.setdefault((r["arch"], r["shape"]), {})[r["mesh"]] = r
+
+    def both(rs, fmt):
+        vals = [fmt(rs[m]) for m in ("256x1", "2x256x1") if m in rs]
+        return vals[0] if len(set(vals)) == 1 else " / ".join(vals)
+
+    def mem(key, scale, digits):
+        return lambda r: f"{r['memory'][key] / scale:.{digits}f}"
+    rows = ["| arch | shape | TFLOP | bytes accessed (GB) | collective (GB) "
+            "| arguments (GiB) | peak (GiB) | trace_s |",
+            "|---|---|---|---|---|---|---|---|"]
+    for (arch, shape), rs in runs.items():
+        rows.append("| " + " | ".join([
+            arch, shape,
+            both(rs, lambda r: f"{r['flops'] / 1e12:.1f}"),
+            both(rs, lambda r: f"{r['bytes_accessed'] / 1e9:.1f}"),
+            both(rs, lambda r: f"{r['collective_bytes'] / 1e9:.2f}"),
+            both(rs, mem("argument_size_in_bytes", 2 ** 30, 2)),
+            both(rs, mem("peak_memory_in_bytes", 2 ** 30, 1)),
+            " / ".join(str(rs[m]["trace_s"]) for m in ("256x1", "2x256x1")
+                       if m in rs)]) + " |")
+    return "\n".join(rows)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="experiments/dryrun")
+    ap.add_argument("--jobs", type=int, default=8)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--arch", action="append",
+                    help="only this arch's pairs (repeatable)")
+    args = ap.parse_args(argv)
+    os.makedirs(args.out, exist_ok=True)
+    todo = [(a, s) for a, s in pairs() if not args.arch or a in args.arch]
+    with ThreadPoolExecutor(args.jobs) as pool:
+        done = list(pool.map(lambda p: run_pair(*p, args.out, args.device),
+                             todo))
+    print(table(args.out))
+    failed = [(a, s) for a, s, rc in done if rc]
+    if failed:
+        print("FAILURES:", failed)
+        raise SystemExit(1)
+    print(f"dry run complete: {len(done)} pairs x 2 meshes traced")
+
+
+if __name__ == "__main__":
+    main()
