@@ -181,7 +181,33 @@ non-zero before the result lines:
      mesh, 4 prompts of 2048 then 32 greedy tokens: the tokens equal
      ServingEngine's (phase 13's path) on the same prompts and weights;
      prefill seconds and decode ms per token per request beside the
-     engine's.
+     engine's;
+ 32. tensor parallelism (a model axis of TP_RANKS = 2, "1x2"), each rank
+     a process of this script (``--tp-rank``) on the one card, joined
+     through gloo (NCCL refuses two ranks on one device), under one
+     deadline that kills every rank: full-width olmo-1b in bf16 trained
+     through launch/train.py::train with the hier step, batch 2 x 2048
+     (cut from 8 so that both ranks fit), 3 steps, against the same steps
+     at world size 1 on the same batches (first loss within 2e-3, later
+     ones within 1e-2, relative); exactly 16 x 3 flash launches a rank,
+     all on wgmma, at (2, 8, 2048, 128); each rank's peak; rank 0's
+     FlopCounterMode FLOPs of the step equal to launch/dryrun.py's
+     lower_one on "1x2" (phase 30's equality on a model axis);
+ 33. the prefill and serve steps on "1x2", olmo-1b in f32 and in bf16,
+     4 prompts of 2048 then 8 teacher-forced tokens, against the same
+     steps at world size 1: the last position's logits of every step in
+     f32 within 1e-2 (relative norm); in bf16 no further from the f32
+     logits than TP_BF16_NOISE_RATIO times the unsplit bf16 program's
+     distance from them; the greedy tokens' agreement printed;
+ 34. scoring on "1x2": qwen2-moe-a2.7b (60 experts, 30 a rank, expert
+     parallel) and mamba2-2.7b (80 SSD heads, 40 a rank) at full width in
+     bf16, batch 4 x 2048, 2 evaluations, the first with every kernel
+     call held against its plain version (phase 12's tolerances); losses
+     within 1e-3 of world size 1's; exact launch counts, all on wgmma, at
+     the local shapes (4, 8, 2048, 128) and (4, 2048, 40, 64); those
+     shapes then held against their plain versions and timed as in phase
+     6. Times in phases 32-34 are of 2 ranks sharing one card through
+     gloo, not tensor-parallel speed.
 
 The second-to-last line is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero without.
@@ -1793,12 +1819,557 @@ def check_port_simlint():
     return len(files), want, time.perf_counter() - t0
 
 
+# ---------------------------------------------------------------------------
+# phases 32-34: tensor parallelism over a model axis of TP_RANKS ranks, each
+# rank a process on the one card
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2
+# NCCL refuses two ranks of one communicator on one device
+# (ncclInvalidUsage); gloo takes CUDA tensors and moves them through the
+# host (a 256 MB f32 all-reduce took 0.38 s on the H100 machine's host)
+TP_BACKEND = "gloo"
+TP_DEADLINE_S = 600          # each phase's ranks, start to finish
+TP_TRAIN_BATCH = 2           # phase 32: cut from 8 so that both ranks fit
+TP_TRAIN_STEPS = 3
+TP_FIRST_LOSS_RTOL = 2e-3    # phase 32's first loss against world size 1
+TP_LOSS_RTOL = 1e-2          # its later losses
+TP_DECODE_TOKENS = 8         # phase 33: teacher-forced after the prompts
+# phase 33's last-position logits against world size 1: in f32; in bf16
+# the unsplit program itself lies about 2e-2 (relative norm) from its f32
+# twin on random-weight olmo-1b (phase 33 prints it), so the split
+# program's bf16 logits are held by their distance from the f32 twin,
+# within TP_BF16_NOISE_RATIO of the unsplit bf16 program's
+TP_LOGITS_REL_NORM = 1e-2
+TP_BF16_NOISE_RATIO = 1.25
+TP_SCORE_BATCH = 4           # phase 34
+TP_SCORE_EVALS = 2           # the first held against the plain versions
+TP_SCORE_RTOL = 1e-3         # phase 34's losses against world size 1
+TP_SCORE_ARCHS = ("qwen2-moe-a2.7b", "mamba2-2.7b")
+
+
+@contextlib.contextmanager
+def kernel_shapes(record: dict):
+    """Within the block, the shape of every ops.flash_attention call's q
+    (b, h, s, d) and ops.ssd_scan call's x (b, s, h, p) is counted in
+    ``record`` ({"flash": {shape: n}, "ssd": {shape: n}})."""
+    from repro_torch.kernels import ops
+    flash, scan = ops.flash_attention, ops.ssd_scan
+
+    def count(kind, shape):
+        d = record.setdefault(kind, {})
+        d[str(tuple(shape))] = d.get(str(tuple(shape)), 0) + 1
+
+    def flash_seen(q, k, v, **kw):
+        count("flash", q.shape)
+        return flash(q, k, v, **kw)
+
+    def scan_seen(x, *args, **kw):
+        count("ssd", x.shape)
+        return scan(x, *args, **kw)
+
+    ops.flash_attention, ops.ssd_scan = flash_seen, scan_seen
+    try:
+        yield record
+    finally:
+        ops.flash_attention, ops.ssd_scan = flash, scan
+
+
+def tp_mesh():
+    from repro_torch.launch.mesh import make_custom_mesh
+    return make_custom_mesh(f"1x{TP_RANKS}", "cuda")
+
+
+def tp_held(step, cfg, device):
+    """Seed-0 weights drawn on the card (the world-1 phases' weights) and
+    cut to this rank's model parts, one rank at a time (two whole copies
+    of qwen2-moe and the ranks' parts would not fit at once)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import registry
+    held = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            held = step.shard_params(registry.init(0, cfg, device))
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return held
+
+
+def tp_whole_logits(step, logits):
+    """This rank's vocabulary columns -> every column (f32, on each
+    rank)."""
+    from repro_torch.distributed import tensor_parallel as tp
+    with tp.model_parallel(step.model_group):
+        return tp.gather_from_model(logits.float().contiguous(), -1)
+
+
+def tp_train_rank(device, workdir):
+    """Phase 32 on one rank: launch/train.py::train with the hier step on
+    "1xTP_RANKS", then one more step of the same program under
+    FlopCounterMode."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.train import train
+    from repro_torch.models import registry
+    from repro_torch.models.base import InputShape
+    cfg = ARCHS["olmo-1b"].replace(use_flash_kernel=True)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    shapes = {}
+    with kernel_shapes(shapes):
+        params, losses, step_s = train(
+            cfg, steps=TP_TRAIN_STEPS, batch=TP_TRAIN_BATCH, seq=SEQ,
+            strategy="hier", log_every=1, device=device,
+            mesh_shape=f"1x{TP_RANKS}")
+    torch.cuda.synchronize()
+    out = dict(losses=losses, step_s=step_s, launches=kernel_counts(),
+               routes=dict(fa.ROUTE_LAUNCHES), shapes=shapes,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    for p in T.leaves(params):
+        require(bool(p.float().isfinite().all()), "non-finite parameters")
+    del params
+    torch.cuda.empty_cache()
+    shape = InputShape(f"train_{TP_TRAIN_BATCH}x{SEQ}", SEQ,
+                       TP_TRAIN_BATCH, "train")
+    dcfg = D.dryrun_config("olmo-1b", shape, remat=False)
+    step = D.make_step(dcfg, shape, tp_mesh(), fsdp=False)
+    args = D.step_args(step, dcfg, shape, device=device,
+                       init=lambda p: registry.init(0, dcfg, device))
+    with FlopCounterMode(display=False) as flops:
+        step(*args)
+    torch.cuda.synchronize()
+    out["flops"] = flops.get_total_flops()
+    return out
+
+
+def tp_serve_rank(device, workdir):
+    """Phase 33 on one rank: make_prefill_step and make_serve_step on
+    "1xTP_RANKS", in f32 and in bf16, the prompts then TP_DECODE_TOKENS
+    teacher-forced tokens; rank 0 writes the last position's logits of
+    each step (serve_logits_<dtype>.npy)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = ARCHS["olmo-1b"].replace(dtype=dtype)
+        mesh = tp_mesh()
+        prefill = make_prefill_step(cfg, mesh)
+        serve = make_serve_step(cfg, mesh)
+        held = tp_held(prefill, cfg, device)
+        toks = torch.from_numpy(tp_prompts(cfg)).to(device)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(held, {"tokens": toks[:, :SEQ]},
+                                max_seq=SEQ + TP_DECODE_TOKENS)
+        last = [tp_whole_logits(prefill, logits[:, -1])]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in range(TP_DECODE_TOKENS):
+            logits, cache = serve(held, cache, SEQ + t,
+                                  toks[:, SEQ + t:SEQ + t + 1])
+            last.append(tp_whole_logits(serve, logits[:, -1]))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        name = str(dtype).split(".")[-1]
+        if dist.get_rank() == 0:
+            np.save(Path(workdir) / f"serve_logits_{name}.npy",
+                    torch.stack(last, 1).cpu().numpy())
+        out[name] = dict(prefill_s=t1 - t0, decode_s=t2 - t1,
+                         launches=kernel_counts(),
+                         cache_shapes=[list(x.shape) for x in
+                                       (cache["k"], cache["v"])],
+                         peak_bytes=torch.cuda.max_memory_allocated())
+        del held, cache, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_prompts(cfg):
+    """Phase 33's tokens: TP prompts of SEQ and the decode's next
+    TP_DECODE_TOKENS, from RandomState(0)."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    return rng.randint(0, cfg.vocab_size, (SERVE_REQUESTS, SEQ
+                                           + TP_DECODE_TOKENS)).astype(
+        np.int32)
+
+
+def tp_score_rank(device, workdir):
+    """Phase 34 on one rank: each TP_SCORE_ARCHS scored TP_SCORE_EVALS
+    times on "1xTP_RANKS" (its model parts through a prefill step's
+    shard_params), the first evaluation with every kernel call held
+    against its plain version."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.steps import make_prefill_step
+    out = {}
+    for arch in TP_SCORE_ARCHS:
+        cfg = ARCHS[arch].replace(use_flash_kernel=True,
+                                  use_ssd_kernel=True)
+        step = make_prefill_step(cfg, tp_mesh())
+        held = tp_held(step, cfg, device)
+        torch.cuda.reset_peak_memory_stats()
+        record, shapes = [], {}
+        with tp.model_parallel(step.model_group), kernel_shapes(shapes):
+            losses, secs, launches = run_scoring(
+                cfg, step.model_params(held), device, TP_SCORE_BATCH, SEQ,
+                TP_SCORE_EVALS, held=record)
+        out[arch] = dict(
+            losses=losses, secs=secs, launches=launches, shapes=shapes,
+            routes={"flash": dict(fa.ROUTE_LAUNCHES),
+                    "ssd": dict(ssd.ROUTE_LAUNCHES)},
+            held=[(k, r) for k, r in record],
+            peak_bytes=torch.cuda.max_memory_allocated())
+        del held
+        torch.cuda.empty_cache()
+    return out
+
+
+def local_shape(cfg, batch_size: int):
+    """A rank's flash shape (b, h, s, d) on the model axis."""
+    return (batch_size, cfg.n_heads // TP_RANKS, SEQ, cfg.resolved_head_dim)
+
+
+def run_steps_logits(cfg, device):
+    """Phase 33 at world size 1: tp_serve_rank's calls on a one-rank mesh;
+    returns (the last position's logits of each step, (b, steps, V) f32
+    numpy, prefill seconds, decode seconds)."""
+    import torch
+    from repro_torch.launch.mesh import make_custom_mesh, process_group
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import registry
+    params = registry.init(0, cfg, device)
+    toks = torch.from_numpy(tp_prompts(cfg)).to(device)
+    with process_group(device):
+        mesh = make_custom_mesh("1x1", device.type)
+        prefill = make_prefill_step(cfg, mesh)
+        serve = make_serve_step(cfg, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": toks[:, :SEQ]},
+                                max_seq=SEQ + TP_DECODE_TOKENS)
+        last = [logits[:, -1].float()]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in range(TP_DECODE_TOKENS):
+            logits, cache = serve(params, cache, SEQ + t,
+                                  toks[:, SEQ + t:SEQ + t + 1])
+            last.append(logits[:, -1].float())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = torch.stack(last, 1).cpu().numpy()
+        del params, cache, logits
+    torch.cuda.empty_cache()
+    return out, t1 - t0, t2 - t1
+
+
+TP_TASKS = {"train": tp_train_rank, "serve": tp_serve_rank,
+            "score": tp_score_rank}
+
+
+def tp_rank_main(task: str, rank: int, world: int, workdir: str) -> int:
+    """One rank of a phase 32-34 task (``chip_smoke.py --tp-rank TASK RANK
+    WORLD DIR``): a TP_BACKEND process group through DIR, cuda:0, the
+    kernels this script's build made; the result as DIR/TASK_rankR.json."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import _build
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()
+    dist.init_process_group(TP_BACKEND,
+                            init_method=f"file://{workdir}/{task}.init",
+                            rank=rank, world_size=world)
+    try:
+        out = TP_TASKS[task](torch.device("cuda", 0), workdir)
+        with open(Path(workdir) / f"{task}_rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_tp_world(task: str):
+    """Phases 32-34: TP_RANKS processes of this script running ``task``,
+    all on cuda:0, under one deadline; every rank is killed if one fails
+    or the deadline passes, and the phase raises with each rank's log.
+    Returns (each rank's result, the directory the ranks wrote, which the
+    caller removes)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix=f"chip_smoke_tp_{task}_")
+    procs, logs = [], []
+    for rank in range(TP_RANKS):
+        log_f = open(Path(workdir) / f"{task}_rank{rank}.log", "w+")
+        logs.append(log_f)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--tp-rank",
+             task, str(rank), str(TP_RANKS), workdir],
+            stdout=log_f, stderr=subprocess.STDOUT, cwd=ROOT))
+    deadline = time.monotonic() + TP_DEADLINE_S
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+                break
+            if time.monotonic() > deadline:
+                failed = f"timed out after {TP_DEADLINE_S} s"
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if failed is None and any(p.returncode for p in procs):
+        failed = f"exit codes {[p.returncode for p in procs]}"
+    texts = []
+    for rank, f in enumerate(logs):
+        f.seek(0)
+        texts.append(f"--- rank {rank} ---\n{f.read()[-6000:]}")
+        f.close()
+    if failed:
+        raise RuntimeError(f"phase task {task!r} on {TP_RANKS} ranks: "
+                           f"{failed}\n" + "\n".join(texts))
+    results = []
+    for rank in range(TP_RANKS):
+        with open(Path(workdir) / f"{task}_rank{rank}.json") as f:
+            results.append(json.load(f))
+    return results, workdir
+
+
+def run_tp_phases(device, gen, card: str, flash_rows: list,
+                  ssd_rows: list):
+    """Phases 32-34: tensor parallelism on a model axis of TP_RANKS, each
+    held against the same work at world size 1; the local-head kernel
+    shapes' rows go into ``flash_rows`` and ``ssd_rows``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import registry
+    from repro_torch.models.base import InputShape
+    tp_note = (f"{TP_RANKS} ranks sharing one {card} through "
+               f"{TP_BACKEND}; not tensor-parallel speed")
+    tcfg = ARCHS["olmo-1b"].replace(use_flash_kernel=True)
+    log(f"[32] tensor parallelism: {tcfg.arch_id} bf16 (seed 0) through "
+        f"launch/train.py::train with the hier step on 1x{TP_RANKS} "
+        f"(model axis {TP_RANKS}), batch {TP_TRAIN_BATCH} x {SEQ} (cut from "
+        f"{GLOBAL_BATCH} so that both ranks fit), {TP_TRAIN_STEPS} steps, "
+        f"against the same steps at world size 1; {tp_note}")
+    w_losses, w_step_s, _, _, w_peak = run_hier_training(
+        tcfg, device, TP_TRAIN_BATCH, SEQ, TP_TRAIN_STEPS)
+    t0 = time.perf_counter()
+    tr, tr_dir = run_tp_world("train")
+    shutil.rmtree(tr_dir, ignore_errors=True)
+    log(f"  world size 1: losses {w_losses}, step seconds {w_step_s}, peak "
+        f"{w_peak} bytes; the ranks' phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    want = want_launches(flash=tcfg.n_layers * TP_TRAIN_STEPS)
+    local = (TP_TRAIN_BATCH, tcfg.n_heads // TP_RANKS, SEQ,
+             tcfg.resolved_head_dim)
+    for rank, r in enumerate(tr):
+        errs = [abs(a - b) / abs(b) for a, b in zip(r["losses"], w_losses)]
+        log(f"  rank {rank}: losses {r['losses']} (relative to world size "
+            f"1: {errs}; tolerances {TP_FIRST_LOSS_RTOL} first, "
+            f"{TP_LOSS_RTOL} later), step seconds {r['step_s']} ({tp_note}),"
+            f" peak {r['peak_bytes']} bytes ({r['peak_bytes'] / 2**30:.2f} "
+            f"GiB), launches {r['launches']}, flash routes {r['routes']}, "
+            f"shapes {r['shapes']}")
+        require(errs[0] <= TP_FIRST_LOSS_RTOL and max(errs) <= TP_LOSS_RTOL,
+                f"rank {rank}'s losses {r['losses']} against {w_losses}")
+        require(r["launches"] == want, f"rank {rank}'s launches "
+                f"{r['launches']} != {want}")
+        require(r["routes"] == {"wgmma": want["flash_attention"],
+                                "cuda_cores": 0},
+                f"rank {rank}'s flash routes {r['routes']}")
+        require(r["shapes"] == {"flash": {str(local):
+                                          want["flash_attention"]}},
+                f"rank {rank}'s flash shapes {r['shapes']}, want {local}")
+    shape = InputShape(f"train_{TP_TRAIN_BATCH}x{SEQ}", SEQ, TP_TRAIN_BATCH,
+                       "train")
+    pred = D.lower_one("olmo-1b", shape, multi_pod=False,
+                       mesh_shape=f"1x{TP_RANKS}", fsdp=False, remat=False,
+                       device=device.type)
+    log(f"  the dry run of rank 0's step on 1x{TP_RANKS} (fake CUDA tensors,"
+        f" trace {pred['trace_s']} s): flops {pred['flops']!r}, collectives "
+        f"{pred['collectives']}, memory {pred['memory']}; measured on rank "
+        f"0: flops {tr[0]['flops']!r}")
+    require(pred["flops"] == tr[0]["flops"],
+            f"predicted flops {pred['flops']!r} != rank 0's "
+            f"{tr[0]['flops']!r}")
+
+    log(f"[33] the prefill and serve steps on 1x{TP_RANKS}: "
+        f"{tcfg.arch_id} in f32 and in bf16 (seed 0), {SERVE_REQUESTS} "
+        f"prompts of {SEQ}, then {TP_DECODE_TOKENS} teacher-forced tokens, "
+        f"against the same steps at world size 1; {tp_note}")
+    w_steps = {name: run_steps_logits(ARCHS["olmo-1b"].replace(dtype=dt),
+                                      device)
+               for name, dt in (("float32", torch.float32),
+                                ("bfloat16", torch.bfloat16))}
+    sv, sv_dir = run_tp_world("serve")
+    t_logits = {name: np.load(Path(sv_dir) / f"serve_logits_{name}.npy")
+                for name in w_steps}
+    shutil.rmtree(sv_dir, ignore_errors=True)
+
+    def rel_norms(a, b):
+        return [float(np.linalg.norm(a[:, i] - b[:, i])
+                      / np.linalg.norm(b[:, i])) for i in range(b.shape[1])]
+    vocab = ARCHS["olmo-1b"].vocab_size
+    f32, bf16 = w_steps["float32"][0], w_steps["bfloat16"][0]
+    rels = rel_norms(t_logits["float32"], f32)
+    tp_vs_w = rel_norms(t_logits["bfloat16"], bf16)
+    tp_vs_f32 = rel_norms(t_logits["bfloat16"], f32)
+    w_vs_f32 = rel_norms(bf16, f32)
+    for name, (w_logits, w_pre_s, w_dec_s) in w_steps.items():
+        agree = float(np.mean(t_logits[name][..., :vocab].argmax(-1)
+                              == w_logits[..., :vocab].argmax(-1)))
+        log(f"  {name}: greedy tokens agree at {agree!r} of "
+            f"{w_logits.shape[0] * w_logits.shape[1]} positions; world size "
+            f"1: prefill {w_pre_s!r} s, decode {w_dec_s!r} s; "
+            + "; ".join(f"rank {k}: prefill {r[name]['prefill_s']!r} s, "
+                        f"decode {r[name]['decode_s']!r} s, cache (k, v) "
+                        f"{r[name]['cache_shapes']}, peak "
+                        f"{r[name]['peak_bytes']} bytes, launches "
+                        f"{r[name]['launches']}" for k, r in enumerate(sv))
+            + f" ({tp_note})")
+        for r in sv:
+            require(r[name]["launches"] == want_launches(), "the steps' "
+                    f"launches {r[name]['launches']}: prefill attends "
+                    "through its cache")
+    log(f"  f32 last-position logits against world size 1, relative norm "
+        f"per step (prefill, then each decode): {rels} (limit "
+        f"{TP_LOGITS_REL_NORM})")
+    log(f"  bf16: against world size 1's bf16 {tp_vs_w}; against world size "
+        f"1's f32 {tp_vs_f32}, where world size 1's bf16 lies {w_vs_f32} "
+        f"from it (the split program's distance within "
+        f"{TP_BF16_NOISE_RATIO} times the unsplit one's)")
+    require(max(rels) <= TP_LOGITS_REL_NORM,
+            f"tensor-parallel f32 logits off by {max(rels)!r}")
+    for i, (a, b) in enumerate(zip(tp_vs_f32, w_vs_f32)):
+        require(a <= TP_BF16_NOISE_RATIO * b,
+                f"step {i}: the split bf16 logits lie {a!r} from f32, the "
+                f"unsplit ones {b!r}")
+
+    log(f"[34] scoring on 1x{TP_RANKS}: {', '.join(TP_SCORE_ARCHS)} at full "
+        f"width in bf16 (seed 0), batch {TP_SCORE_BATCH} x {SEQ}, "
+        f"{TP_SCORE_EVALS} evaluations (the first with every kernel call "
+        f"held against its plain version), against world size 1; "
+        f"{tp_note}")
+    w_score = {}
+    for arch in TP_SCORE_ARCHS:
+        c = ARCHS[arch].replace(use_flash_kernel=True, use_ssd_kernel=True)
+        params = registry.init(0, c, device)
+        w_score[arch] = run_scoring(c, params, device, TP_SCORE_BATCH, SEQ,
+                                    TP_SCORE_EVALS)
+        del params
+        torch.cuda.empty_cache()
+    sc, sc_dir = run_tp_world("score")
+    shutil.rmtree(sc_dir, ignore_errors=True)
+    tp_launches = {}
+    for arch in TP_SCORE_ARCHS:
+        c = ARCHS[arch]
+        w_losses = w_score[arch][0]
+        if c.family == "ssm":
+            want = want_launches(ssd=c.n_layers * TP_SCORE_EVALS)
+            local = {"ssd": {str((TP_SCORE_BATCH, SEQ,
+                                  c.ssm_nheads // TP_RANKS,
+                                  c.ssm_headdim)): want["ssd_scan"]}}
+        else:
+            want = want_launches(flash=c.n_layers * TP_SCORE_EVALS)
+            local = {"flash": {str((TP_SCORE_BATCH, c.n_heads // TP_RANKS,
+                                    SEQ, c.resolved_head_dim)):
+                               want["flash_attention"]}}
+        for rank, res in enumerate(sc):
+            r = res[arch]
+            errs = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                        w_losses)]
+            held = max(x for _, x in r["held"])
+            log(f"  {arch} rank {rank}: losses {r['losses']} against world "
+                f"size 1's {w_losses} (relative {errs}, tolerance "
+                f"{TP_SCORE_RTOL}); seconds {r['secs']} against "
+                f"{w_score[arch][1]} ({tp_note}); peak {r['peak_bytes']} "
+                f"bytes; launches {r['launches']}, routes {r['routes']}, "
+                f"shapes {r['shapes']}; {len(r['held'])} kernel calls held "
+                f"against plain, worst relative norm error {held:.3e}")
+            require(max(errs) <= TP_SCORE_RTOL,
+                    f"{arch} rank {rank}'s losses {r['losses']} against "
+                    f"{w_losses}")
+            require(r["launches"] == want,
+                    f"{arch} rank {rank}'s launches {r['launches']} != {want}")
+            kind = "ssd" if c.family == "ssm" else "flash"
+            n = want["ssd_scan" if kind == "ssd" else "flash_attention"]
+            require(r["routes"][kind] == {"wgmma": n, "cuda_cores": 0},
+                    f"{arch} rank {rank}'s {kind} routes {r['routes']}")
+            require(r["shapes"] == local,
+                    f"{arch} rank {rank}'s kernel shapes {r['shapes']}, "
+                    f"want {local}")
+            require(len(r["held"]) == n // TP_SCORE_EVALS,
+                    f"{arch} rank {rank}: {len(r['held'])} calls held")
+            tp_launches[arch] = tp_launches.get(arch, 0) + n
+    ssm = ARCHS["mamba2-2.7b"]
+    qwen = ARCHS["qwen2-moe-a2.7b"]
+    tp_flash_shapes = [
+        (f"{tcfg.arch_id} (1x{TP_RANKS} rank)", local_shape(tcfg,
+                                                            TP_TRAIN_BATCH),
+         0),
+        (f"{qwen.arch_id} (1x{TP_RANKS} rank)", local_shape(qwen,
+                                                            TP_SCORE_BATCH),
+         0)]
+    tp_ssd_shape = (TP_SCORE_BATCH, SEQ, ssm.ssm_nheads // TP_RANKS,
+                    ssm.ssm_headdim, ssm.ssm_state, min(ssm.ssm_chunk, SEQ))
+    log(f"  the local-head kernel shapes against their plain versions and "
+        f"timed (as in phase 6; {card})")
+    tp_errs = check_flash_shapes(device, tp_flash_shapes, gen)
+    tp_ssd_err = check_ssd_shape(device, tp_ssd_shape, gen,
+                                 f"{ssm.arch_id} (1x{TP_RANKS} rank)")
+    tp_counts = {tp_flash_shapes[0][0]: TP_RANKS * tcfg.n_layers
+                 * TP_TRAIN_STEPS,
+                 tp_flash_shapes[1][0]: tp_launches[qwen.arch_id]}
+    for name, shape, window in tp_flash_shapes:
+        t = time_flash(device, shape, gen, window=window)
+        flash_rows.append(dict(model=name, shape=list(shape), window=window,
+                               launches=tp_counts[name],
+                               max_abs_err=tp_errs[name], **t))
+        log(f"  flash_attention at {name}'s shape: {flash_rows[-1]}")
+    t, cc_ms = time_ssd(device, tp_ssd_shape, gen)
+    ssd_rows.append(dict(model=f"{ssm.arch_id} (1x{TP_RANKS} rank)",
+                         shape=list(tp_ssd_shape),
+                         launches=tp_launches[ssm.arch_id],
+                         max_abs_err=tp_ssd_err, cuda_cores_ms=cc_ms, **t))
+    log(f"  ssd_scan at {ssm.arch_id}'s local shape: {ssd_rows[-1]}")
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--tp-rank"]:       # one rank of phases 32-34
+        task, rank, world, workdir = sys.argv[2:6]
+        return tp_rank_main(task, int(rank), int(world), workdir)
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
@@ -2199,6 +2770,8 @@ def main() -> int:
     require(p_launches == want_launches(),
             f"the steps' launches {p_launches}: prefill attends through its "
             "cache, so no kernel launches")
+
+    run_tp_phases(device, gen, card, flash_rows, ssd_rows)
 
     kernels = [
         dict(name="aggregate_shards", route="cuda",

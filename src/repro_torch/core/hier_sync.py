@@ -60,10 +60,10 @@ def all_gather(out, inp, group):
     return out
 
 
-def all_reduce(x, group):
-    """Sum ``x`` over ``group`` in place."""
+def all_reduce(x, group, op=dist.ReduceOp.SUM):
+    """Sum (or ``op``) ``x`` over ``group`` in place."""
     hlo_stats.record("all-reduce", x)
-    dist.all_reduce(x, group=group)
+    dist.all_reduce(x, op=op, group=group)
     return x
 
 

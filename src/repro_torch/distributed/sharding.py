@@ -191,17 +191,40 @@ def opt_state_specs(pspecs):
     return AdamWState(step=(), mu=pspecs, nu=pspecs)
 
 
-def placement(spec: tuple, model_size: int = 1) -> Optional[tuple]:
-    """What a spec asks of the port's one-process-per-rank step:
-    ``(dim, axes)`` to shard dim ``dim`` over the mesh axes ``axes`` (a
-    name or a tuple of names), or None to replicate. "model" entries
-    replicate on a model axis of size 1; a larger one raises."""
-    names = [ax if isinstance(ax, tuple) else (ax,) for ax in spec]
-    if model_size != 1 and any("model" in n for n in names):
-        raise NotImplementedError(
-            "a model axis > 1 (tensor parallelism) is not ported yet "
-            "(ROADMAP A16b)")
-    for i, (ax, n) in enumerate(zip(spec, names)):
-        if ax is not None and "model" not in n:
-            return i, ax
-    return None
+def placement(spec: tuple, model_size: int = 1):
+    """What a spec asks of the port's one-process-per-rank steps: ``(data,
+    model)``, each ``(dim, axes)`` for the dim the spec splits over the
+    data-like axes (a name or a tuple of names) and the dim it splits over
+    ``model``, or None where it splits none. "model" entries replicate on
+    a model axis of size 1."""
+    data = model = None
+    for i, ax in enumerate(spec):
+        if ax is None:
+            continue
+        if "model" in (ax if isinstance(ax, tuple) else (ax,)):
+            if model_size != 1:
+                model = (i, ax)
+        elif data is None:
+            data = (i, ax)
+    return data, model
+
+
+def model_part(x, dim: Optional[int], n: int, index: int):
+    """Part ``index`` of ``n`` of a whole leaf along its model dim ``dim``
+    (a view; ``x`` itself when ``dim`` is None)."""
+    if dim is None:
+        return x
+    k = x.shape[dim] // n
+    return x.narrow(dim, index * k, k)
+
+
+def gather_model_part(part, dim: Optional[int], group):
+    """The inverse of ``model_part`` over the model ``group``: every
+    rank's part concatenated along ``dim`` (a new tensor)."""
+    if dim is None:
+        return part
+    import torch.distributed as dist
+
+    from repro_torch.distributed.tensor_parallel import gather_dim
+    return gather_dim(part, dim, group,
+                      dist.get_world_size(group)).contiguous()

@@ -41,6 +41,13 @@ Per rank, as the reference's keys:
 
 A decode step runs at ``pos = seq_len - 1`` (the reference traces a
 symbolic position): the last slot of a full ``seq_len`` cache.
+
+On a mesh with a model axis ("32x8", "2x32x8", the reference's "16x16"
+and "2x16x16") rank 0 holds its model parts and runs its heads, experts
+and vocabulary columns (``distributed/tensor_parallel.py``); the
+recorder counts the model group's collectives with the data group's. The
+families not ported to a model axis > 1 (hybrid, vlm, audio: ROADMAP A16c)
+are reported as skipped, not as failures.
 """
 from __future__ import annotations
 
@@ -181,8 +188,8 @@ def step_args(step, cfg: ModelConfig, shape: InputShape, *, device="cuda",
     """The arguments of ``step`` at ``shape``: this rank's parameters
     (``init(full meta params)`` -> full tensors, default uninitialised
     ones, then ``shard_params``), optimizer state and rows of a zero
-    batch, and for decode a zero cache. Under ``FakeTensorMode`` every
-    tensor is fake."""
+    batch, and for decode its part of a zero cache. Under
+    ``FakeTensorMode`` every tensor is fake."""
     dev = torch.device(device)
     init = init or (lambda p: T.tree_map(
         lambda x: torch.empty(x.shape, dtype=x.dtype, device=dev), p))
@@ -195,10 +202,10 @@ def step_args(step, cfg: ModelConfig, shape: InputShape, *, device="cuda",
     if shape.kind == "prefill":
         return params, batch
     extras = {k: v for k, v in specs.items() if k not in ("tokens", "pos")}
-    cache = T.tree_map(
+    cache = step.shard_cache(T.tree_map(
         lambda x: torch.zeros(x.shape, dtype=x.dtype, device=dev),
         decode_cache_shapes(cfg, batch["tokens"].shape[0], shape.seq_len,
-                            extras or None))
+                            extras or None)))
     return params, cache, shape.seq_len - 1, batch["tokens"]
 
 
@@ -267,7 +274,8 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="dir for per-pair JSON")
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--mesh-shape", default=None,
-                    help="custom mesh, e.g. 8x1 or 2x4x1 (model axis 1)")
+                    help="custom mesh, e.g. 8x1, 2x4x1, 32x8 or 2x16x16 "
+                    "(data x model, pod x data x model)")
     ap.add_argument("--set", action="append", default=[],
                     help="ModelConfig override, e.g. --set moe_group=1024")
     ap.add_argument("--tag", default="", help="suffix for the output JSON")
@@ -314,6 +322,18 @@ def main(argv=None):
                                 mesh_shape=args.mesh_shape,
                                 overrides=overrides or None,
                                 device=args.device)
+            except NotImplementedError as e:
+                if "A16c" not in str(e):
+                    raise
+                print(f"SKIP {arch_id} x {shape_name} on {mesh_name}: {e}")
+                if args.out:
+                    os.makedirs(args.out, exist_ok=True)
+                    with open(os.path.join(args.out, tag + ".json"),
+                              "w") as f:
+                        json.dump({"arch": arch_id, "shape": shape_name,
+                                   "mesh": mesh_name, "skipped": str(e)},
+                                  f, indent=1)
+                continue
             except Exception as e:
                 traceback.print_exc()
                 failures.append((tag, repr(e)))

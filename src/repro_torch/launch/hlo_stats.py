@@ -4,7 +4,9 @@ package's ``launch/hlo_stats.py``).
 The reference reads its collectives from the compiled HLO text. The port
 has no HLO: every collective it issues goes through
 ``core/hier_sync.py``'s ``reduce_scatter``, ``all_gather`` and
-``all_reduce``, which report each call to the recorders open here.
+``all_reduce``, which report each call to the recorders open here: those
+of the data group and, under tensor parallelism
+(``distributed/tensor_parallel.py``), those of the model group alike.
 
     with CollectiveRecorder() as rec:
         step(params, opt_state, batch)

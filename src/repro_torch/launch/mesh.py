@@ -6,8 +6,9 @@ A mesh is a ``torch.distributed.device_mesh.DeviceMesh``: every rank of
 the default process group holds one position of it, and
 ``mesh.get_group(axis)`` is the group of the ranks that differ only along
 ``axis``. ``make_production_mesh`` gives the H100-cluster counterparts of
-the reference's 16x16 / 2x16x16 TPU meshes, with the ``model`` axis at 1
-until tensor parallelism is ported (ROADMAP A16b).
+the reference's 16x16 / 2x16x16 TPU meshes with the ``model`` axis at 1;
+``make_custom_mesh`` takes a model axis too (tensor parallelism), e.g. the
+8-card NVLink node's "32x8" and "2x32x8", or the reference's "16x16".
 """
 from __future__ import annotations
 
@@ -24,13 +25,15 @@ def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda"):
     """256 ranks as (data=256, model=1) ("256x1"); with ``multi_pod``, 512
     as (pod=2, data=256, model=1) ("2x256x1"): the reference's chip counts
-    (16x16 and 2x16x16), on H100 clusters with the ``model`` axis left at 1
-    until tensor parallelism is ported (ROADMAP A16b). With a model axis of
-    1, ``prefill_32k`` (batch 32), ``decode_32k`` (128) and ``long_500k``
-    (1) do not divide 256 data ranks, nor ``train_4k``'s 256 the 512 of
+    (16x16 and 2x16x16), on H100 clusters with the ``model`` axis at 1, on
+    which every family runs (the hybrid, vlm and audio families take no
+    model axis yet, ROADMAP A16c). With a model axis of 1,
+    ``prefill_32k`` (batch 32), ``decode_32k`` (128) and ``long_500k`` (1)
+    do not divide 256 data ranks, nor ``train_4k``'s 256 the 512 of
     "2x256x1", so ``batch_specs`` keeps those batches whole on every rank;
-    A16b's model axis removes this. Needs a default process group of 256
-    (512) ranks, e.g. the dry run's fake one."""
+    a model axis ("32x8", "2x32x8" through ``make_custom_mesh``) removes
+    this. Needs a default process group of 256 (512) ranks, e.g. the dry
+    run's fake one."""
     return make_custom_mesh(PRODUCTION_MESHES[multi_pod], device_type)
 
 
@@ -38,8 +41,9 @@ PRODUCTION_MESHES = {False: "256x1", True: "2x256x1"}
 
 
 def make_custom_mesh(shape_str: str, device_type: str = "cuda"):
-    """'8x1' -> (data=8, model=1); '2x4x1' -> (pod=2, data=4, model=1),
-    over the ranks of the default process group in row-major order."""
+    """'8x1' -> (data=8, model=1); '2x4x1' -> (pod=2, data=4, model=1);
+    '32x8' -> (data=32, model=8), over the ranks of the default process
+    group in row-major order (the model axis innermost: a node's cards)."""
     dims = tuple(int(x) for x in shape_str.split("x"))
     if len(dims) == 2:
         names = ("data", "model")
@@ -84,17 +88,27 @@ def data_index(mesh) -> int:
 
 
 def data_group(mesh):
-    """One process group over every data-like axis of ``mesh`` (pod x data
-    when both are there), ranks in ``data_index`` order. Every rank of the
-    default group must call this together (it may create a group)."""
+    """The process group over every data-like axis of ``mesh`` (pod x data
+    when both are there) that holds this rank: with a model axis, one
+    group per model coordinate. Ranks in ``data_index`` order. Every rank
+    of the default group must call this together (it may create groups)."""
     axes = data_axes(mesh)
     if len(axes) == 1:
         return mesh.get_group(axes[0])
-    if axis_size(mesh, "model") != 1:
-        raise NotImplementedError(
-            "a model axis > 1 (tensor parallelism) is not ported yet "
-            "(ROADMAP A16b)")
-    return dist.new_group(ranks=mesh.mesh.flatten().tolist())
+    by_model = mesh.mesh.reshape(-1, axis_size(mesh, "model"))
+    mine = None
+    for j in range(by_model.shape[1]):
+        group = dist.new_group(ranks=by_model[:, j].tolist())
+        if j == axis_index(mesh, "model"):
+            mine = group
+    return mine
+
+
+def model_group(mesh):
+    """The process group of the ranks that differ only along ``model``
+    (None on a mesh without that axis)."""
+    return (mesh.get_group("model") if "model" in mesh.mesh_dim_names
+            else None)
 
 
 @contextlib.contextmanager

@@ -23,10 +23,13 @@ step:
 
 Leaves the rules leave unsplit (small or indivisible) are all-reduced, and
 their update is replicated. Each rank computes the gradient of
-``registry.loss_fn`` on its contiguous slice of the global batch; the
-loss is the mean of the ranks' losses, which is the global batch's mean
-when the slices are equal and no label is masked (-1), as in the data
-stream here. The collectives run at every world size, one included.
+``registry.loss_fn`` on its contiguous slice of the global batch, with
+``cross_entropy`` dividing by the mean over the data ranks of their counts
+of labels >= 0 (``models/layers.py::global_label_count``): the ranks'
+losses and gradients then sum to the global batch's, every token weighted
+alike as in the reference, whatever labels are masked (-1). The loss is
+the mean of the ranks' losses. The collectives run at every world size,
+one included.
 
 ``fsdp=True`` (every step) is ZeRO-3 over every data-like axis, on the
 reference's ``param_specs(..., fsdp_axis=data axes, fsdp_divisor=data
@@ -37,8 +40,18 @@ per-layer shards that the layer hook (``models/transformer.py::
 gather_layer``) all-gathers just before its layer runs, inside the
 checkpointed body under ``cfg.remat``. The gather's backward is a
 reduce-scatter, so gradients leave the step as this rank's parts and
-AdamW runs on them. Not ported yet: a ``model`` axis > 1 (tensor
-parallelism, ROADMAP A16b) raises.
+AdamW runs on them.
+
+A ``model`` axis > 1 is tensor parallelism (``distributed/
+tensor_parallel.py``): each rank holds the model part of every leaf the
+reference's ``param_specs(..., model_size)`` split over ``model`` (and,
+under ``fsdp``, its data part of that), and the model runs inside
+``tensor_parallel.model_parallel`` on those parts. The ranks of one model
+coordinate form the data group: the batch, the gradient sync, ZeRO-3 and
+the ``hier`` state work there as they do without a model axis. The
+prefill and serve steps hold their caches split as ``cache_specs`` says
+(``shard_cache``). The dense, MoE and SSM families take a model axis; the
+hybrid, vlm and audio families, and ``seq_shard``, raise (ROADMAP A16c).
 """
 from __future__ import annotations
 
@@ -50,10 +63,14 @@ import torch.distributed as dist
 
 from repro_torch.core import tree as T
 from repro_torch.core.hier_sync import all_gather, all_reduce, reduce_scatter
-from repro_torch.distributed.sharding import (is_stacked, param_specs,
-                                              placement)
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import (cache_specs, gather_model_part,
+                                              is_stacked, model_part,
+                                              param_specs, placement)
 from repro_torch.launch.mesh import (axis_index, axis_size, data_axes,
-                                     data_group, data_index, data_size)
+                                     data_group, data_index, data_size,
+                                     model_group)
+from repro_torch.models import layers as L
 from repro_torch.models import registry
 from repro_torch.models.base import ModelConfig
 from repro_torch.optim.adamw import AdamW, AdamWState
@@ -71,15 +88,6 @@ def _grad_axes(mesh, strategy: str):
     if strategy == "allreduce":
         return None
     raise ValueError(f"unknown train sync strategy {strategy!r}")
-
-
-def _model_axis(mesh) -> int:
-    model_n = axis_size(mesh, "model")
-    if model_n != 1:
-        raise NotImplementedError(
-            "a model axis > 1 (tensor parallelism) is not ported yet "
-            "(ROADMAP A16b)")
-    return model_n
 
 
 @dataclasses.dataclass
@@ -168,14 +176,23 @@ class _Sharded:
 @dataclasses.dataclass
 class _Step:
     """What every step shares: the config, this rank's place in the
-    global batch and, under ``fsdp``, the ZeRO-3 split of each parameter
-    leaf (None where the leaf stays whole)."""
+    global batch, the model dim of each parameter leaf that tensor
+    parallelism splits (None where the leaf is whole on every model rank)
+    and, under ``fsdp``, the ZeRO-3 split of each leaf's model part (None
+    where it stays whole)."""
     cfg: ModelConfig
     fsdp: List[Optional[_Shard]]      # per param leaf, in leaves order
     stacked: List[bool]               # gathered per layer (else at start)
-    group: Any                        # every data-like rank
-    n_data: int
+    group: Any                        # the data-like ranks of this model
+    n_data: int                       # coordinate
     index: int
+    model: List[Optional[int]] = None  # per param leaf: its model dim
+    model_group: Any = None
+    n_model: int = 1
+    model_index: int = 0
+
+    def _model_take(self, x, dim):
+        return model_part(x, dim, self.n_model, self.model_index)
 
     def local_batch(self, batch):
         """This rank's contiguous rows of a global batch (a tree of numpy
@@ -189,17 +206,51 @@ class _Step:
         return T.tree_map(rows, batch)
 
     def shard_params(self, params):
-        """Full parameters -> what this rank holds: its part (copied) of
-        every ZeRO-3 leaf, the other leaves as they are."""
-        return T.unflatten(params, [
-            x if z is None else z.take(x).clone()
-            for x, z in zip(T.leaves(params), self.fsdp)])
+        """Full parameters -> what this rank holds: its model part of
+        every leaf split over ``model``, and of that its ZeRO-3 part,
+        copied; the other leaves as they are."""
+        out = []
+        for x, z, md in zip(T.leaves(params), self.fsdp, self.model):
+            part = self._model_take(x, md)
+            part = part if z is None else z.take(part)
+            out.append(part if part is x else part.clone())
+        return T.unflatten(params, out)
 
     def gather_params(self, params):
         """What this rank holds -> the full parameters, on every rank."""
         return T.unflatten(params, [
-            x if z is None else z.gather(x)
-            for x, z in zip(T.leaves(params), self.fsdp)])
+            gather_model_part(x if z is None else z.gather(x), md,
+                              self.model_group)
+            for x, z, md in zip(T.leaves(params), self.fsdp, self.model)])
+
+    def _cache_dims(self, like):
+        """The model dim (or None) of each leaf of a cache whose whole
+        shapes are ``like``'s, as ``cache_specs`` splits it."""
+        return [placement(spec, self.n_model)[1] for spec in T.leaves(
+            cache_specs(like, ("data",), model_size=self.n_model))]
+
+    def shard_cache(self, cache):
+        """A whole cache of this rank's rows -> its model part, as
+        ``cache_specs`` splits it (copied; the cache itself on a model axis
+        of 1)."""
+        if self.n_model == 1:
+            return cache
+        return T.unflatten(cache, [
+            x if md is None else self._model_take(x, md[0]).clone()
+            for x, md in zip(T.leaves(cache), self._cache_dims(cache))])
+
+    def gather_cache(self, cache):
+        """The inverse of ``shard_cache``: every model rank's part of
+        each leaf, concatenated."""
+        if self.n_model == 1:
+            return cache
+        like = decode_cache_shapes(self.cfg, T.leaves(cache)[0].shape[1],
+                                   cache["k"].shape[2] if "k" in cache
+                                   else 1)
+        return T.unflatten(cache, [
+            x if md is None else gather_model_part(x, md[0],
+                                                   self.model_group)
+            for x, md in zip(T.leaves(cache), self._cache_dims(like))])
 
     def model_params(self, params):
         """The tree the model takes: unstacked ZeRO-3 leaves gathered
@@ -238,24 +289,41 @@ class TrainStep(_Step):
         """A full optimizer state (a checkpoint's) -> this rank's parts,
         copied."""
         def part(t):
-            return T.unflatten(t, [x.clone() if s is None else
-                                   s.take(x).clone() for x, s in
-                                   zip(T.leaves(t), self._state_shards())])
+            out = []
+            for x, s, md in zip(T.leaves(t), self._state_shards(),
+                                self.model):
+                x = self._model_take(x, md)
+                out.append((x if s is None else s.take(x)).clone())
+            return T.unflatten(t, out)
         return AdamWState(step=state.step, mu=part(state.mu),
                           nu=part(state.nu))
 
     def gather_opt_state(self, state: AdamWState) -> AdamWState:
         """This rank's parts -> the full optimizer state, on every rank."""
         def full(t):
-            return T.unflatten(t, [x.clone() if s is None else s.gather(x)
-                                   for x, s in zip(T.leaves(t),
-                                                   self._state_shards())])
+            return T.unflatten(t, [
+                gather_model_part(x.clone() if s is None else s.gather(x),
+                                  md, self.model_group)
+                for x, s, md in zip(T.leaves(t), self._state_shards(),
+                                    self.model)])
         return AdamWState(step=state.step, mu=full(state.mu),
                           nu=full(state.nu))
 
+    def _clip_groups(self):
+        """Per leaf, the groups its gradient part is split over (the
+        clip's sums): the state shard's, then the model group's."""
+        out = []
+        for s, md in zip(self._state_shards(), self.model):
+            groups = ((() if s is None else (s.clip_group,))
+                      + (() if md is None else (self.model_group,)))
+            out.append(groups[0] if len(groups) == 1 else groups or None)
+        return out
+
     def __call__(self, params, opt_state: AdamWState, batch):
-        loss, grads = T.value_and_grad(lambda p, b: registry.loss_fn(
-            self.model_params(p), self.cfg, b))(params, batch)
+        with tp.model_parallel(self.model_group), \
+                L.global_label_count(self.group, self.n_data):
+            loss, grads = T.value_and_grad(lambda p, b: registry.loss_fn(
+                self.model_params(p), self.cfg, b))(params, batch)
         gl = T.leaves(grads)
         for i, (z, s) in enumerate(zip(self.fsdp, self.shards)):
             if z is not None:       # summed into this part by the gathers
@@ -264,11 +332,9 @@ class TrainStep(_Step):
                 gl[i] = all_reduce(gl[i], self.group) / self.n_data
             else:
                 gl[i] = s.scatter(gl[i]) / self.n_data
-        over = [None if s is None else s.clip_group
-                for s in self._state_shards()]
         new_parts, opt_state = self.optimizer.update(
             T.unflatten(params, gl), opt_state, self._held_parts(params),
-            sharded=T.unflatten(params, over))
+            sharded=T.unflatten(params, self._clip_groups()))
         del gl
         new = [x if s is None else s.gather(x)
                for x, s in zip(T.leaves(new_parts), self.shards)]
@@ -281,10 +347,13 @@ class PrefillStep(_Step):
     """``step(params, local_batch, max_seq=None) -> (logits, cache)``:
     ``registry.prefill`` on this rank's rows, with no gradient; ``max_seq``
     sizes the cache for the decode that follows (the prompt's length by
-    default, as in the reference)."""
+    default, as in the reference). Under tensor parallelism the logits are
+    this rank's columns of the vocabulary and the cache its model part
+    (``gather_cache``, ``tensor_parallel.gather_from_model`` make them
+    whole)."""
 
     def __call__(self, params, batch, max_seq: Optional[int] = None):
-        with torch.no_grad():
+        with torch.no_grad(), tp.model_parallel(self.model_group):
             return registry.prefill(self.model_params(params), self.cfg,
                                     batch, max_seq=max_seq)
 
@@ -296,33 +365,37 @@ class ServeStep(_Step):
     ``max_seq`` cache (``registry.decode_step``), with no gradient."""
 
     def __call__(self, params, cache, pos, tokens):
-        with torch.no_grad():
+        with torch.no_grad(), tp.model_parallel(self.model_group):
             return registry.decode_step(self.model_params(params), self.cfg,
                                         cache, pos, tokens)
 
 
 def _base(cfg: ModelConfig, mesh, fsdp: bool) -> dict:
-    """The fields of ``_Step`` for ``mesh``: the ZeRO-3 split of each leaf
-    of at least ``FSDP_MIN_SIZE`` elements over every data-like rank when
-    ``fsdp``."""
+    """The fields of ``_Step`` for ``mesh``: the model dim of each leaf the
+    specs split over a model axis > 1, and the ZeRO-3 split of each leaf of
+    at least ``FSDP_MIN_SIZE`` elements over the data-like ranks of this
+    model coordinate when ``fsdp``."""
     pshapes = registry.init(0, cfg, device="meta")
-    model_n = _model_axis(mesh)
+    model_n = axis_size(mesh, "model")
+    registry.check_model_axis(cfg, model_n)
     group, n_data = data_group(mesh), data_size(mesh)
     paths = [p for p, _ in T.leaves_with_path(pshapes)]
-    split = [None] * len(paths)
-    if fsdp:
-        pspecs = param_specs(pshapes, model_size=model_n,
-                             fsdp_axis=data_axes(mesh),
-                             fsdp_min_size=FSDP_MIN_SIZE, fsdp_divisor=n_data)
-        index = data_index(mesh)
-        for i, spec in enumerate(T.leaves(pspecs)):
-            where = placement(spec, model_n)
-            if where is not None:
-                split[i] = _Shard(dim=where[0], group=group, n=n_data,
-                                  index=index, clip_group=group)
+    split, mdims = [None] * len(paths), [None] * len(paths)
+    pspecs = param_specs(pshapes, model_size=model_n,
+                         fsdp_axis=data_axes(mesh) if fsdp else None,
+                         fsdp_min_size=FSDP_MIN_SIZE, fsdp_divisor=n_data)
+    index = data_index(mesh)
+    for i, spec in enumerate(T.leaves(pspecs)):
+        data, model = placement(spec, model_n)
+        mdims[i] = model and model[0]
+        if data is not None:
+            split[i] = _Shard(dim=data[0], group=group, n=n_data,
+                              index=index, clip_group=group)
     return dict(cfg=cfg, fsdp=split,
                 stacked=[is_stacked(p) for p in paths],
-                group=group, n_data=n_data, index=data_index(mesh))
+                group=group, n_data=n_data, index=index, model=mdims,
+                model_group=model_group(mesh) if model_n > 1 else None,
+                n_model=model_n, model_index=axis_index(mesh, "model"))
 
 
 def make_train_step(cfg: ModelConfig, mesh, *, strategy: str = "hier",
@@ -337,7 +410,8 @@ def make_train_step(cfg: ModelConfig, mesh, *, strategy: str = "hier",
     if gaxes:
         # the reference's ZeRO layout: gradients constrained to the
         # reduce-scatter placement of these specs
-        zspecs = param_specs(pshapes, model_size=1, fsdp_axis=gaxes,
+        zspecs = param_specs(pshapes, model_size=base["n_model"],
+                             fsdp_axis=gaxes,
                              fsdp_min_size=2 ** 14,
                              fsdp_divisor=(base["n_data"] if strategy ==
                                            "hier1" else
@@ -347,7 +421,7 @@ def make_train_step(cfg: ModelConfig, mesh, *, strategy: str = "hier",
         n_pod = axis_size(mesh, "pod") if two_level else 1
         for i, (spec, leaf) in enumerate(zip(T.leaves(zspecs),
                                              T.leaves(pshapes))):
-            where = placement(spec, 1)
+            where, _ = placement(spec, base["n_model"])
             if where is None or base["fsdp"][i] is not None:
                 continue
             n = dist.get_world_size(g)

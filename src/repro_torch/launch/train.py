@@ -5,8 +5,9 @@
 
 trains with the ``hier`` step (``--strategy hier|hier1|allreduce``, see
 ``launch/steps.py``) on every rank of the process group, one rank when
-none is initialised. Runs on the CUDA card unless ``--device`` says
-otherwise. ``--dry-run`` points at the dry run, ``python -m
+none is initialised, all on the data axis or on ``--mesh-shape`` (e.g.
+"1x2": a model axis of 2, tensor parallelism). Runs on the CUDA card
+unless ``--device`` says otherwise. ``--dry-run`` points at the dry run, ``python -m
 repro_torch.launch.dryrun``, as the reference's does.
 """
 from __future__ import annotations
@@ -34,17 +35,20 @@ def make_local_mesh(device="cuda"):
 
 def train(cfg, *, steps: int, batch: int, seq: int, strategy: str,
           lr: float = 3e-4, log_every: int = 10, loader=None, params=None,
-          device="cuda", fsdp: bool = False):
+          device="cuda", fsdp: bool = False, mesh_shape=None):
     """Train ``cfg`` for ``steps`` steps of a global batch of ``batch`` x
     ``seq`` tokens, each rank of the process group on its rows (a one-rank
     group is made, and destroyed on return, when none is initialised),
-    with ZeRO-3 parameters under ``fsdp``. ``params`` (e.g. the
+    with ZeRO-3 parameters under ``fsdp``, on the mesh ``mesh_shape``
+    (default every rank on the data axis). ``params`` (e.g. the
     reference's, carried across) replaces the seed-0 init. Returns (the
-    full params, losses, step seconds), each step timed on the host clock
-    up to its loss read back."""
+    full params, whole leaves gathered over every axis, losses, step
+    seconds), each step timed on the host clock up to its loss read
+    back."""
     dev = T.resolve_device(device)
     with process_group(dev):
-        mesh = make_local_mesh(dev)
+        mesh = (make_custom_mesh(mesh_shape, dev.type) if mesh_shape
+                else make_local_mesh(dev))
         opt = AdamW(lr=lr, schedule=warmup_cosine(max(steps // 20, 1), steps))
         step_fn = make_train_step(cfg, mesh, strategy=strategy, fsdp=fsdp,
                                   optimizer=opt)
@@ -85,6 +89,9 @@ def main(argv=None):
     ap.add_argument("--strategy", default="hier",
                     choices=["hier", "hier1", "allreduce"])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="e.g. 2x1 or 1x2 (data x model) over the ranks of "
+                    "an initialised process group")
     ap.add_argument("--dry-run", action="store_true",
                     help="see python -m repro_torch.launch.dryrun")
     args = ap.parse_args(argv)
@@ -99,7 +106,7 @@ def main(argv=None):
         cfg = reduced(cfg)
     _, losses, _ = train(cfg, steps=args.steps, batch=args.batch,
                          seq=args.seq, strategy=args.strategy, lr=args.lr,
-                         device=args.device)
+                         device=args.device, mesh_shape=args.mesh_shape)
     print(f"final loss {losses[-1]:.4f} (from {losses[0]:.4f})")
 
 

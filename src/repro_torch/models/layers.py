@@ -5,14 +5,32 @@ Functional, like the reference: parameters are nested dicts of tensors and
 every layer is ``init_*`` + ``apply_*``. Attention runs blockwise with an
 online softmax, or, under ``cfg.use_flash_kernel``, through the hand-written
 flash-attention kernel (``kernels.ops.flash_attention``).
+
+Under tensor parallelism (``distributed/tensor_parallel.py``, a model group
+of more than one rank) a layer takes what this rank holds of each leaf,
+its model part as the sharding specs split it or the whole leaf, and
+tells the two apart by shape against the config's full widths: attention
+runs this rank's heads (``tp.bounds(n_heads)``), the MLP its columns of
+the hidden width, the embedding, unembedding and loss their rows of the
+vocabulary. Where a part falls inside a head (the specs split the
+flattened head columns whenever they divide: qwen2.5-3b's two KV heads on
+8 ranks, phi4-mini's 24 heads on 16), the layer gathers that leaf over
+the model group and takes the heads it needs; the alternative, contracting
+the split head dim with an all-reduce of partial scores, would cut
+attention's work by rank only for the q-k product and would need the
+rotary embedding's pairs (i, i + d/2) on one rank. The decode cache's
+fallback to the head dim is the one place that contraction is made.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.hier_sync import all_reduce
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.base import ModelConfig
 
 NEG_INF = -1e30
@@ -167,6 +185,10 @@ def apply_attention(params, cfg: ModelConfig, x, *, positions=None,
     this call's keys and values written at ``cache_index``. Returns
     (out, new_cache).
     """
+    if tp.size() > 1:
+        return _attention_tp(params, cfg, x, positions=positions,
+                             causal=causal, cache=cache,
+                             cache_index=cache_index)
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     nq = params["wq"].shape[1] // hd
@@ -204,18 +226,144 @@ def apply_attention(params, cfg: ModelConfig, x, *, positions=None,
     n_rep = nq // nkv
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
-    if cfg.use_flash_kernel and cache is None and causal and s > 1:
+    out = _attend(cfg, q, k, v, causal=causal, q_offset=q_offset,
+                  flash=cache is None)
+    out = out.reshape(b, s, nq * hd) @ params["wo"]
+    return out, new_cache
+
+
+def _attend(cfg: ModelConfig, q, k, v, *, causal: bool, q_offset: int,
+            flash: bool):
+    """q, k, v (b, s, h, d) with as many k / v heads as q heads: the flash
+    kernel under ``cfg.use_flash_kernel`` for causal self-attention without
+    a cache, else ``blockwise_attention``."""
+    s = q.shape[1]
+    if cfg.use_flash_kernel and flash and causal and s > 1:
         from repro_torch.kernels import ops as kops
         out = kops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=window, block_q=min(256, s),
+            causal=True, window=cfg.sliding_window, block_q=min(256, s),
             block_k=min(256, s))
-        out = out.transpose(1, 2)
-    else:
-        out = blockwise_attention(q, k, v, causal=causal, q_offset=q_offset,
-                                  sliding_window=window)
-    out = out.reshape(b, s, nq * hd) @ params["wo"]
-    return out, new_cache
+        return out.transpose(1, 2)
+    return blockwise_attention(q, k, v, causal=causal, q_offset=q_offset,
+                               sliding_window=cfg.sliding_window)
+
+
+def _kv_for_heads(k, lo: int, hi: int, n_rep: int, base: int):
+    """k or v (b, s, kv, d) holding kv heads [base, ...) -> one per q head
+    of [lo, hi) (q head j reads kv head j // n_rep)."""
+    if n_rep == 1 and lo == base and k.shape[2] == hi - lo:
+        return k
+    if lo % n_rep == 0 and hi % n_rep == 0:
+        return _repeat_kv(k[:, :, lo // n_rep - base:hi // n_rep - base],
+                          n_rep)
+    idx = torch.arange(lo, hi, device=k.device) // n_rep - base
+    return k.index_select(2, idx)
+
+
+def _gather_heads(x, n: int):
+    """(b, s, h_r, d) on each model rank, its heads ``tp.bounds(n)`` -> all
+    n heads, (b, s, n, d), on every rank (no gradient: decode)."""
+    m = tp.size()
+    width = -(-n // m)
+    lo, hi = tp.bounds(n)
+    full = tp.gather_from_model(F.pad(x, (0, 0, 0, width - (hi - lo))), 2)
+    idx = [r * width + j for r in range(m)
+           for j in range(tp.bounds(n, r)[1] - tp.bounds(n, r)[0])]
+    return full[:, :, idx]
+
+
+def _attention_tp(params, cfg: ModelConfig, x, *, positions, causal: bool,
+                  cache: Optional[dict], cache_index: Optional[int]):
+    """``apply_attention`` on this model rank's q heads [lo, hi): q for
+    them, k and v for the kv heads they read (every kv head where the
+    cache holds them all or splits the head dim), the output projection's
+    rows of those heads, summed over the model group.
+
+    The cache is this rank's part as ``init_kv_cache`` shapes it: its kv
+    heads, or (the specs' fallback where the kv heads do not divide) its
+    part of every head's dims, or the whole. A head-dim-split cache is
+    written with this rank's dims; prefill (``cache_index`` 0) attends
+    over the new keys, and a later step contracts q . k over the split
+    dims with an all-reduce of the partial scores and all-gathers the
+    output's dims."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    n_rep = nq // nkv
+    lo, hi = tp.bounds(nq)
+    if hi == lo:
+        raise NotImplementedError(
+            f"{nq} heads on a model axis of {tp.size()}: a rank without a "
+            "head")
+    klo, khi = lo // n_rep, (hi - 1) // n_rep + 1
+    layout = None if cache is None else (
+        "hd" if cache["k"].shape[-1] != hd else
+        "kv" if cache["k"].shape[-2] != nkv else "whole")
+    ka, kz = (0, nkv) if layout in ("hd", "whole") else (klo, khi)
+    xc = tp.copy_to_model(x)
+
+    def proj(w, bias, n, a, z):
+        y = xc @ tp.used_part(params[w], -1, n * hd, a * hd, z * hd)
+        if bias in params:
+            y = y + tp.used_part(params[bias], -1, n * hd, a * hd, z * hd)
+        return y.reshape(b, s, z - a, hd)
+    q = proj("wq", "bq", nq, lo, hi)
+    k = proj("wk", "bk", nkv, ka, kz)
+    v = proj("wv", "bv", nkv, ka, kz)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    q_offset, new_cache, out = 0, cache, None
+    if cache is not None:
+        idx = int(cache_index or 0)
+        ck, cv = cache["k"].clone(), cache["v"].clone()
+        if layout == "hd":
+            d_lo, d_hi = tp.bounds(hd)
+            ck[:, idx:idx + s] = k[..., d_lo:d_hi].to(ck.dtype)
+            cv[:, idx:idx + s] = v[..., d_lo:d_hi].to(cv.dtype)
+        else:
+            ck[:, idx:idx + s] = k.to(ck.dtype)
+            cv[:, idx:idx + s] = v.to(cv.dtype)
+        new_cache = {"k": ck, "v": cv}
+        if layout == "hd" and idx:
+            out = _attend_split_dims(cfg, _gather_heads(q, nq), ck, cv,
+                                     idx)[:, :, lo:hi]
+        elif layout != "hd":
+            k, v, q_offset = ck, cv, idx
+    if out is None:
+        out = _attend(cfg, q, _kv_for_heads(k, lo, hi, n_rep, ka),
+                      _kv_for_heads(v, lo, hi, n_rep, ka), causal=causal,
+                      q_offset=q_offset, flash=cache is None)
+    out = out.reshape(b, s, (hi - lo) * hd) @ tp.used_part(
+        params["wo"], -2, nq * hd, lo * hd, hi * hd)
+    return tp.reduce_from_model(out), new_cache
+
+
+def _attend_split_dims(cfg: ModelConfig, q, ck, cv, q_offset: int):
+    """Causal attention of every head's q (b, s, nq, d) against a cache
+    whose head dims are split over the model group (b, S, kv, d / m): the
+    partial scores over this rank's dims are summed over the group, the
+    output's dims gathered. -> (b, s, nq, d), the same on every rank."""
+    b, sq, nq, hd = q.shape
+    d_lo, d_hi = tp.bounds(hd)
+    n_rep = nq // ck.shape[2]
+    qf = q[..., d_lo:d_hi].float() * hd ** -0.5
+    kf = _repeat_kv(ck, n_rep).float()
+    vf = _repeat_kv(cv, n_rep).float()
+    scores = tp.reduce_from_model(torch.einsum("bqhd,bkhd->bhqk", qf, kf))
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    kv_pos = torch.arange(kf.shape[1], device=q.device)
+    mask = q_pos[:, None] >= kv_pos[None, :]
+    if cfg.sliding_window:
+        mask &= q_pos[:, None] - kv_pos[None, :] < cfg.sliding_window
+    scores = torch.where(mask, scores, NEG_INF)
+    p = torch.exp(scores - torch.amax(scores, dim=-1, keepdim=True))
+    p = p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    return tp.gather_from_model(out, -1).to(q.dtype)
 
 
 def cross_attention(attn, cfg: ModelConfig, x, kv):
@@ -239,7 +387,16 @@ def cross_query(attn):
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
-    shape = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    """Zero keys and values, (b, max_seq, kv, hd); under tensor
+    parallelism this rank's part of them, as ``cache_specs`` splits the
+    cache: the kv heads where they divide the model axis, else the head
+    dim where it divides, else the whole."""
+    kv, hd, m = cfg.n_kv_heads, cfg.resolved_head_dim, tp.size()
+    if kv % m == 0:
+        kv //= m
+    elif hd % m == 0:
+        hd //= m
+    shape = (batch, max_seq, kv, hd)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
@@ -259,7 +416,16 @@ def init_mlp(normal, cfg: ModelConfig, d_ff: Optional[int] = None):
             "wo": dense_init(normal, d_ff, d_model, cfg.dtype)}
 
 
-def apply_mlp(params, cfg: ModelConfig, x):
+def apply_mlp(params, cfg: ModelConfig, x, d_ff: Optional[int] = None):
+    """The MLP of hidden width ``d_ff`` (default ``cfg.d_ff``); under
+    tensor parallelism, on this rank's columns of it where the leaves are
+    split (column- then row-parallel), summed over the model group."""
+    if tp.size() > 1 and params["wi"].shape[-1] != (d_ff or cfg.d_ff):
+        return tp.reduce_from_model(_mlp(params, tp.copy_to_model(x)))
+    return _mlp(params, x)
+
+
+def _mlp(params, x):
     if "wg" in params:
         return (F.silu(x @ params["wi"]) * (x @ params["wg"])) @ params["wo"]
     # jax.nn.gelu defaults to the tanh approximation
@@ -279,19 +445,74 @@ def init_embed(normal, cfg: ModelConfig):
     return p
 
 
-def embed_tokens(params, x):
-    return params["tok"][x.long()]
+def embed_tokens(params, x, cfg: Optional[ModelConfig] = None):
+    """Rows of ``tok`` for the ids ``x``. Under tensor parallelism (``cfg``
+    then gives the full widths) from this rank's rows of the vocabulary,
+    the ids outside them masked and the lookups summed over the model
+    group; or from its columns of d (the specs' fallback), gathered."""
+    tok = params["tok"]
+    if tp.size() == 1:
+        return tok[x.long()]
+    if cfg is None:
+        raise ValueError("embed_tokens under tensor parallelism needs cfg")
+    if tok.shape[0] != cfg.vocab_padded:
+        ids = x.long() - tp.rank() * tok.shape[0]
+        inside = (ids >= 0) & (ids < tok.shape[0])
+        h = tok[torch.where(inside, ids, 0)].masked_fill(~inside[..., None],
+                                                        0)
+        return tp.reduce_from_model(h)
+    if tok.shape[1] != cfg.d_model:
+        return tp.gather_from_model(tok[x.long()], -1)
+    return tok[x.long()]
 
 
 def unembed(params, cfg: ModelConfig, h):
-    if cfg.tie_embeddings:
-        return h @ params["tok"].T
-    return h @ params["unembed"]
+    """Logits (b, s, V); under tensor parallelism, this rank's columns of
+    the vocabulary where ``unembed`` (or a tied ``tok``) is split over it
+    (``cross_entropy`` takes them as they are)."""
+    w = params["tok"].T if cfg.tie_embeddings else params["unembed"]
+    if tp.size() == 1 or w.shape == (cfg.d_model, cfg.vocab_padded):
+        return h @ w
+    if w.shape[1] != cfg.vocab_padded:
+        return tp.copy_to_model(h) @ w
+    lo = tp.rank() * w.shape[0]          # a tied tok split on d
+    return tp.reduce_from_model(
+        tp.copy_to_model(h)[..., lo:lo + w.shape[0]] @ w)
+
+
+# (group, n) inside ``global_label_count``
+_LABEL_GROUP = None
+
+
+@contextlib.contextmanager
+def global_label_count(group, n: int):
+    """Inside the block, ``cross_entropy`` divides its sum by the mean over
+    the n ranks of ``group`` of their counts of labels >= 0, not by its
+    own: the data-parallel step's ranks, each on its rows of the global
+    batch, then sum to the global batch's mean, every token weighted
+    alike, as the reference's ``cross_entropy`` over the global batch."""
+    global _LABEL_GROUP
+    prev, _LABEL_GROUP = _LABEL_GROUP, (group, n)
+    try:
+        yield
+    finally:
+        _LABEL_GROUP = prev
+
+
+def _label_count(valid):
+    count = torch.sum(valid)
+    if _LABEL_GROUP is None:
+        return torch.clamp(count, min=1.0)
+    group, n = _LABEL_GROUP
+    total = all_reduce(count.detach().clone(), group)
+    return torch.clamp(total, min=1.0) / n
 
 
 def cross_entropy(logits, labels, cfg: ModelConfig):
     """Mean next-token CE; masks vocab-padding columns and label == -1."""
     vp = logits.shape[-1]
+    if tp.size() > 1 and vp != cfg.vocab_padded:
+        return _vocab_parallel_cross_entropy(logits, labels, cfg)
     logits = logits.float()
     if vp > cfg.vocab_size:  # no masked copy when nothing is padded
         col_mask = torch.arange(vp, device=logits.device) < cfg.vocab_size
@@ -301,4 +522,26 @@ def cross_entropy(logits, labels, cfg: ModelConfig):
                         torch.clamp(labels, min=0).long()[..., None])[..., 0]
     nll = logz - gold
     valid = (labels >= 0).float()
-    return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)
+    return torch.sum(nll * valid) / _label_count(valid)
+
+
+def _vocab_parallel_cross_entropy(logits, labels, cfg: ModelConfig):
+    """``cross_entropy`` of this rank's columns [lo, lo + v) of the
+    logits: the max, the sum of exponentials and the gold logit each taken
+    over the model group, the padding columns masked by their global
+    index; no rank holds the whole (b, s, V)."""
+    v = logits.shape[-1]
+    lo = tp.rank() * v
+    logits = logits.float()
+    if lo + v > cfg.vocab_size:
+        col = torch.arange(lo, lo + v, device=logits.device)
+        logits = torch.where(col < cfg.vocab_size, logits, NEG_INF)
+    m = tp.max_over_model(torch.amax(logits, dim=-1))
+    logz = m + torch.log(tp.reduce_from_model(
+        torch.sum(torch.exp(logits - m[..., None]), dim=-1)))
+    ids = torch.clamp(labels, min=0).long() - lo
+    inside = (ids >= 0) & (ids < v)
+    gold = torch.gather(logits, -1, torch.where(inside, ids, 0)[..., None])
+    gold = tp.reduce_from_model(torch.where(inside, gold[..., 0], 0.0))
+    valid = (labels >= 0).float()
+    return torch.sum((logz - gold) * valid) / _label_count(valid)

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.transformer import remat_wrap, run_layers, stack_init
@@ -135,25 +136,62 @@ def init_mamba_block(normal, cfg: ModelConfig, device,
     }
 
 
-def _in_proj(bp, cfg: ModelConfig, h):
+def _split(bp, cfg: ModelConfig) -> bool:
+    """Whether this block holds its model part of the heads (tensor
+    parallelism: ``wz``/``wx``/``wdt``, ``conv_x``, ``dt_bias``, ``A_log``,
+    ``D``, ``gate_ln`` split by heads, ``wB``/``wC``/``conv_BC`` whole,
+    ``wo`` split by rows)."""
+    if tp.size() == 1 or bp["wx"].shape[-1] == cfg.d_inner:
+        return False
+    if cfg.ssm_nheads % tp.size():
+        raise NotImplementedError(
+            f"{cfg.ssm_nheads} SSM heads on a model axis of {tp.size()}: "
+            "the specs split d_inner inside a head")
+    return True
+
+
+def _in_proj(bp, cfg: ModelConfig, h, split: bool = False):
+    """The input projections. Under tensor parallelism (``split``) z, x
+    and dt are this rank's heads' columns, and B, C whole."""
     hin = L.rmsnorm_raw(h, bp["ln"]["scale"])
-    z = hin @ bp["wz"]
-    x = hin @ bp["wx"]
+    hc = tp.copy_to_model(hin) if split else hin
+    z = hc @ bp["wz"]
+    x = hc @ bp["wx"]
     BC = torch.cat([hin @ bp["wB"], hin @ bp["wC"]], dim=-1)
-    dt = F.softplus((hin @ bp["wdt"]).float() + bp["dt_bias"].float())
+    dt = F.softplus((hc @ bp["wdt"]).float() + bp["dt_bias"].float())
     A = -torch.exp(bp["A_log"].float())
     return z, x, BC, dt, A
+
+
+def _gated_norm(y, z, scale, cfg: ModelConfig, split: bool):
+    """rmsnorm(y * silu(z)) over d_inner; under tensor parallelism y and z
+    are this rank's columns and the sum of squares is summed over the
+    model group."""
+    if not split:
+        return L.rmsnorm_raw(y * F.silu(z), scale)
+    g = (y * F.silu(z)).float()
+    ms = tp.sum_over_model(torch.sum(g * g, dim=-1, keepdim=True)) \
+        / cfg.d_inner
+    return (g * torch.rsqrt(ms + 1e-5) * scale.float()).to(y.dtype)
+
+
+def _out_proj(bp, y, split: bool):
+    out = y @ bp["wo"]
+    return tp.reduce_from_model(out) if split else out
 
 
 def apply_mamba_block(bp, cfg: ModelConfig, h, cache=None):
     """cache: {"conv_x", "conv_BC", "ssm"} or None. Returns (out, new_cache)."""
     b, s, d = h.shape
-    nh, p, n = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
-    z, x, BC, dt, A = _in_proj(bp, cfg, h)
+    split = _split(bp, cfg)
+    nh, p, n = bp["A_log"].shape[-1], cfg.ssm_headdim, cfg.ssm_state
+    z, x, BC, dt, A = _in_proj(bp, cfg, h, split)
     cx = cache["conv_x"] if cache is not None else None
     cbc = cache["conv_BC"] if cache is not None else None
     x, new_cx = causal_conv(x, bp["conv_x"], cx)
     BC, new_cbc = causal_conv(BC, bp["conv_BC"], cbc)
+    if split:      # whole B, C read by this rank's heads only
+        BC = tp.copy_to_model(BC)
     B, C = torch.split(BC, n, dim=-1)
 
     x = x.reshape(b, s, nh, p)
@@ -167,35 +205,42 @@ def apply_mamba_block(bp, cfg: ModelConfig, h, cache=None):
         y, S = ssd_chunked(x, dt, A, B, C, bp["D"], cfg.ssm_chunk,
                            initial_state=s0)
     y = y.reshape(b, s, nh * p)
-    y = L.rmsnorm_raw(y * F.silu(z), bp["gate_ln"]["scale"])
-    out = y @ bp["wo"]
+    y = _gated_norm(y, z, bp["gate_ln"]["scale"], cfg, split)
+    out = _out_proj(bp, y, split)
     return h + out, {"conv_x": new_cx, "conv_BC": new_cbc, "ssm": S}
 
 
 def apply_mamba_decode(bp, cfg: ModelConfig, h, cache):
     """Single-token path (s == 1) using the recurrent form."""
     b = h.shape[0]
-    nh, p, n = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
-    z, x, BC, dt, A = _in_proj(bp, cfg, h)
+    split = _split(bp, cfg)
+    nh, p, n = bp["A_log"].shape[-1], cfg.ssm_headdim, cfg.ssm_state
+    z, x, BC, dt, A = _in_proj(bp, cfg, h, split)
     x, new_cx = causal_conv(x, bp["conv_x"], cache["conv_x"])
     BC, new_cbc = causal_conv(BC, bp["conv_BC"], cache["conv_BC"])
     B, C = torch.split(BC, n, dim=-1)
     y, S = ssd_decode_step(cache["ssm"], x[:, 0].reshape(b, nh, p),
                            dt[:, 0], A, B[:, 0], C[:, 0], bp["D"])
     y = y.reshape(b, 1, nh * p)
-    y = L.rmsnorm_raw(y * F.silu(z), bp["gate_ln"]["scale"])
-    return h + y @ bp["wo"], {"conv_x": new_cx, "conv_BC": new_cbc,
-                              "ssm": S}
+    y = _gated_norm(y, z, bp["gate_ln"]["scale"], cfg, split)
+    return h + _out_proj(bp, y, split), {"conv_x": new_cx,
+                                         "conv_BC": new_cbc, "ssm": S}
 
 
 def init_block_cache(cfg: ModelConfig, batch: int, device):
+    """Zero conv and SSM states; under tensor parallelism this rank's
+    heads' part (``cache_specs``: ``ssm`` on its heads, ``conv_x`` on its
+    columns of d_inner, ``conv_BC`` whole)."""
     W, di, n = cfg.ssm_conv_width, cfg.d_inner, cfg.ssm_state
+    nh, m = cfg.ssm_nheads, tp.size()
+    if nh % m == 0:
+        nh, di = nh // m, di // m
     return {
         "conv_x": torch.zeros(batch, W - 1, di, dtype=cfg.dtype,
                               device=device),
         "conv_BC": torch.zeros(batch, W - 1, 2 * n, dtype=cfg.dtype,
                                device=device),
-        "ssm": torch.zeros(batch, cfg.ssm_nheads, n, cfg.ssm_headdim,
+        "ssm": torch.zeros(batch, nh, n, cfg.ssm_headdim,
                            dtype=torch.float32, device=device),
     }
 
@@ -222,7 +267,7 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, decode=False):
             return apply_mamba_decode(bp, cfg, h, c)
         return apply_mamba_block(bp, cfg, h, cache=c)
 
-    h = L.embed_tokens(params["embed"], tokens)
+    h = L.embed_tokens(params["embed"], tokens, cfg)
     h, new_cache = run_layers(h, params["blocks"], cache, cfg.n_layers,
                               remat_wrap(cfg, apply))
     h = L.apply_norm(params["final_norm"], cfg, h)

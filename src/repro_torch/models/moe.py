@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.base import ModelConfig
@@ -93,19 +94,39 @@ def _experts(ex, ex_in):
 
 
 def _moe_group(p, cfg: ModelConfig, xt):
-    """Dispatch one token group by index. xt: (g, d) -> (out (g, d), aux)."""
+    """Dispatch one token group by index. xt: (g, d) -> (out (g, d), aux).
+
+    Under tensor parallelism every model rank routes the whole group alike
+    (the router is whole, the tokens the same on every rank) and runs the
+    experts it holds: under expert parallelism its E / m experts, whose
+    places alone it fills (the other (token, slot) pairs go to the spare
+    row); under the per-expert fallback every expert on its columns of the
+    hidden width. Its combine is then a partial sum, summed over the model
+    group; the aux loss comes from the whole routing and is not."""
     g, d = xt.shape
     E, k = _n_experts_padded(cfg), cfg.top_k
     gate_idx, pos, keep, gates, cap, aux = _route(p, cfg, xt)
-    # row of each (token, slot) in a flat (E * cap + 1, d) buffer: its
+    ex = p["experts"]
+    n_ex = ex["wi"].shape[0]                     # experts this rank runs
+    split = tp.size() > 1 and (n_ex != E or ex["wi"].shape[-1] != cfg.d_ff)
+    # row of each (token, slot) in a flat (n_ex * cap + 1, d) buffer: its
     # expert's place, or the spare last row when dropped (no boolean
     # indexing, so the host never waits on the device)
-    rows = torch.where(keep, gate_idx * cap + pos, E * cap)      # (g, k)
-    ex_in = xt.new_zeros(E * cap + 1, d)
+    if n_ex == E:
+        rows = torch.where(keep, gate_idx * cap + pos, E * cap)  # (g, k)
+    else:
+        local = gate_idx - tp.rank() * n_ex
+        rows = torch.where(keep & (local >= 0) & (local < n_ex),
+                           local * cap + pos, n_ex * cap)
+    if split:
+        xt, gates = tp.copy_to_model(xt), tp.copy_to_model(gates)
+    ex_in = xt.new_zeros(n_ex * cap + 1, d)
     ex_in[rows.reshape(-1)] = xt[:, None].expand(g, k, d).reshape(g * k, d)
-    ex_out = _experts(p["experts"], ex_in[:-1].reshape(E, cap, d))
-    ex_out = F.pad(ex_out.reshape(E * cap, d), (0, 0, 0, 1))     # spare: 0
+    ex_out = _experts(ex, ex_in[:-1].reshape(n_ex, cap, d))
+    ex_out = F.pad(ex_out.reshape(n_ex * cap, d), (0, 0, 0, 1))  # spare: 0
     out = (ex_out[rows].float() * gates[..., None]).sum(1)       # (g, d)
+    if split:
+        out = tp.reduce_from_model(out)
     return out.to(xt.dtype), aux
 
 
@@ -139,7 +160,8 @@ def apply_moe_ffn(p, cfg: ModelConfig, x):
     out = torch.cat(outs).reshape(b, s, d)
     aux = torch.stack(auxs).mean()
     if "shared" in p:
-        out = out + L.apply_mlp(p["shared"], cfg, x)
+        out = out + L.apply_mlp(p["shared"], cfg, x,
+                                d_ff=cfg.d_ff * cfg.n_shared_experts)
     if "dense" in p:
         out = out + L.apply_mlp(p["dense"], cfg, x)
     return out, aux
@@ -174,7 +196,7 @@ def init(normal, cfg: ModelConfig, device):
 def forward(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,
             cache_index=None):
     """Returns (logits, new cache or None, the summed aux loss)."""
-    h = L.embed_tokens(params["embed"], tokens)
+    h = L.embed_tokens(params["embed"], tokens, cfg)
     aux = []
     body = T.remat_wrap(cfg, lambda h, bp, c: apply_block(
         bp, cfg, h, positions=positions, cache=c, cache_index=cache_index))

@@ -34,6 +34,22 @@ def family_module(cfg: ModelConfig):
     return _FAMILIES[cfg.family]
 
 
+# the families whose layers take their model parts (tensor parallelism)
+MODEL_AXIS_FAMILIES = ("dense", "moe", "ssm")
+
+
+def check_model_axis(cfg: ModelConfig, model_size: int) -> None:
+    """Raise where ``cfg`` cannot run on a model axis of ``model_size``:
+    the hybrid, vlm and audio families, and ``seq_shard``, are not ported
+    to one > 1 yet."""
+    if model_size > 1 and (cfg.family not in MODEL_AXIS_FAMILIES
+                           or cfg.seq_shard):
+        what = "seq_shard" if cfg.seq_shard else f"the {cfg.family} family"
+        raise NotImplementedError(
+            f"{cfg.arch_id}: {what} on a model axis > 1 (tensor "
+            "parallelism) is not ported yet (ROADMAP A16c)")
+
+
 def init(seed: int, cfg: ModelConfig, device="cuda"):
     """Random weights drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device``. They differ from the reference's ``jax.random`` draws;

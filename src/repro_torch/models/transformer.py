@@ -36,8 +36,11 @@ def gather_layer(tree):
     """The layer hook: one layer's parameters as the layer uses them. The
     identity, except inside a ZeRO-3 step (``launch/steps.py``), which
     hands the layer loops per-layer shards (objects with a ``gather``
-    method, not tensors) that are all-gathered here, just before the layer
-    runs. Walks dicts, lists and tuples; tensors pass as they are."""
+    method, not tensors) that are all-gathered here over the data group,
+    just before the layer runs. Walks dicts, lists and tuples; tensors
+    pass as they are. Under tensor parallelism what the gather gives back
+    (or the tensor itself) is this rank's model part of the leaf, which
+    the layer takes as it is (``models/layers.py``)."""
     if isinstance(tree, dict):
         return {k: gather_layer(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -159,7 +162,7 @@ def _run_blocks(params, cfg: ModelConfig, h, *, positions=None, cache=None,
 
 def forward(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,
             cache_index=None):
-    h = L.embed_tokens(params["embed"], tokens)
+    h = L.embed_tokens(params["embed"], tokens, cfg)
     h, new_cache = _run_blocks(params, cfg, h, positions=positions,
                                cache=cache, cache_index=cache_index)
     h = L.apply_norm(params["final_norm"], cfg, h)

@@ -44,27 +44,32 @@ class AdamW:
     def update(self, grads, state: AdamWState, params, *, sharded=None):
         """-> (new params, state); ``state``'s moments are updated in place.
 
-        Under sharded state (``launch/steps.py``'s ``hier`` and ZeRO-3
-        steps), ``sharded`` (a tree like ``grads``) gives each leaf that
-        holds this rank's part of a tensor the process group it is split
-        over, and None for a replicated leaf. The clip's sum of squares of
-        the split leaves is summed over each group, so every rank clips by
-        the global norm; the replicated leaves are counted once."""
+        Under sharded state (``launch/steps.py``'s ``hier``, ZeRO-3 and
+        tensor-parallel steps), ``sharded`` (a tree like ``grads``) gives
+        each leaf that holds this rank's part of a tensor the process group
+        it is split over (a tuple of groups, e.g. data and model, where it
+        is split over several), and None for a replicated leaf. The clip's
+        sum of squares of the split leaves is summed over each group, so
+        every rank clips by the global norm; the replicated leaves are
+        counted once."""
         step = state.step + 1
         scale = None
         if self.grad_clip:
             sq = [torch.sum(torch.square(g.float())) for g in T.leaves(grads)]
-            groups = (T.leaves(sharded) if sharded is not None
-                      else [None] * len(sq))
+            groups = [None if g is None else g if isinstance(g, tuple)
+                      else (g,) for g in (T.leaves(sharded) if sharded
+                                          is not None else [None] * len(sq))]
             # a group is its ranks: two handles on one group sum as one
-            keys = [None if g is None
-                    else tuple(dist.get_process_group_ranks(g))
-                    for g in groups]
+            keys = [None if g is None else tuple(
+                tuple(dist.get_process_group_ranks(x)) for x in g)
+                for g in groups]
             total = torch.zeros_like(sq[0])
             for key in dict.fromkeys(k for k in keys if k is not None):
                 part = sum((x for x, k in zip(sq, keys) if k == key),
                            torch.zeros_like(sq[0]))
-                total = total + all_reduce(part, groups[keys.index(key)])
+                for g in groups[keys.index(key)]:
+                    part = all_reduce(part, g)
+                total = total + part
             total = total + sum(x for x, k in zip(sq, keys) if k is None)
             gnorm = torch.sqrt(total)
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)

@@ -8,9 +8,10 @@ deadline), for each strategy; the moments and params after 10 steps at
 the reference's gradient tolerances (rtol 5e-4 / atol 1e-5, scaled by
 the moments' own size); each rank's moments only for its shard.
 
-The port's loss is the mean of the ranks' losses, the reference's the
-global batch's mean: equal here, where the slices are equal and no label
-is masked. On one device the reference's strategies compute the same
+Each rank's cross_entropy divides by the mean over the data ranks of
+their counts of labels >= 0, so the ranks' losses sum to the global
+batch's mean, as the reference's (``test_masked_labels_weight_each_token``
+masks labels). On one device the reference's strategies compute the same
 step, so each of the port's is held to the same curve."""
 import os
 import sys
@@ -308,8 +309,10 @@ def test_hier_step_world1_equals_loss_and_adamw():
 
 
 def test_unported_options_raise():
-    """``fsdp=True`` builds; a model axis > 1 (tensor parallelism) still
-    raises, naming the slice that ports it (A16b)."""
+    """``fsdp=True`` builds; a model axis > 1 (tensor parallelism) builds
+    the step for the dense, MoE and SSM families and raises for the
+    hybrid, vlm and audio families, naming the slice that ports them
+    (A16c); ``placement`` gives a spec's data and model dims."""
     from repro_torch.launch.dryrun import fake_world
     from repro_torch.launch.mesh import make_custom_mesh
     cfg = reduced(ARCHS["olmo-1b"])
@@ -320,12 +323,21 @@ def test_unported_options_raise():
             make_train_step(cfg, mesh, strategy="ps")
     with fake_world(2):
         mesh = make_custom_mesh("1x2", "cpu")
-        with pytest.raises(NotImplementedError, match="model axis.*A16b"):
-            make_train_step(cfg, mesh)
-    with pytest.raises(NotImplementedError, match="model axis.*A16b"):
-        placement(("data", "model"), model_size=2)
-    assert placement((None, "model", "data"), model_size=1) == (2, "data")
-    assert placement(("model",), model_size=1) is None
+        for arch in ("olmo-1b", "qwen2-moe-a2.7b", "mamba2-2.7b"):
+            step = make_train_step(reduced(ARCHS[arch]), mesh)
+            assert step.n_model == 2 and any(d is not None
+                                             for d in step.model)
+        for arch in ("zamba2-7b", "llama-3.2-vision-90b",
+                     "seamless-m4t-medium"):
+            with pytest.raises(NotImplementedError, match="model axis.*A16c"):
+                make_train_step(reduced(ARCHS[arch]), mesh)
+        with pytest.raises(NotImplementedError, match="seq_shard.*A16c"):
+            make_train_step(cfg.replace(seq_shard=True), mesh)
+    assert placement(("data", "model"), model_size=2) == ((0, "data"),
+                                                          (1, "model"))
+    assert placement((None, "model", "data"), model_size=1) == ((2, "data"),
+                                                                None)
+    assert placement(("model",), model_size=1) == (None, None)
 
 
 def test_train_cli_on_cpu(capsys):

@@ -281,6 +281,251 @@ def suite_train(rank, world, workdir):
     _save(workdir, "train", rank, out)
 
 
+# tensor parallelism: the cases held on each mesh, name -> (arch, the
+# config override both packages take). "phi4-mini-3.8b/h6" has 6 heads, so
+# that on 4 ranks the specs split wq inside a head (1.5 heads a rank, as
+# phi4-mini's 24 heads on 16); "qwen2-moe-a2.7b/e6" has 6 experts, which do
+# not divide 4 ranks (the per-expert fallback); "qwen2-moe-a2.7b/g32"
+# dispatches in groups of 32 tokens, one sequence, so that a data rank's
+# rows make the same groups as the global batch (with the default group of
+# 4096 every rank would route its rows as one group, and the reference the
+# whole batch as one). Reduced qwen2.5-3b and phi4-mini have one 32-wide
+# KV head: wk / wv split inside it.
+TP_CASES = {
+    "olmo-1b": ("olmo-1b", {}),
+    "qwen2.5-3b": ("qwen2.5-3b", {}),
+    "phi4-mini-3.8b": ("phi4-mini-3.8b", {}),
+    "phi4-mini-3.8b/h6": ("phi4-mini-3.8b", {"n_heads": 6}),
+    "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", {}),
+    "qwen2-moe-a2.7b/e6": ("qwen2-moe-a2.7b", {"n_experts": 6}),
+    "qwen2-moe-a2.7b/g32": ("qwen2-moe-a2.7b", {"moe_group": 32}),
+    "mamba2-2.7b": ("mamba2-2.7b", {}),
+}
+TP_MESHES = {
+    "1x2": ["olmo-1b", "qwen2.5-3b", "phi4-mini-3.8b", "qwen2-moe-a2.7b",
+            "mamba2-2.7b"],
+    "1x4": ["olmo-1b", "qwen2.5-3b", "phi4-mini-3.8b", "phi4-mini-3.8b/h6",
+            "qwen2-moe-a2.7b", "qwen2-moe-a2.7b/e6", "mamba2-2.7b"],
+    "2x2": ["olmo-1b", "qwen2.5-3b", "phi4-mini-3.8b",
+            "qwen2-moe-a2.7b/g32", "mamba2-2.7b"],
+}
+TP_BATCH, TP_SEQ = 4, 32          # configs.reduced_batch
+# the steps on "1x2": prefill TP_PREFILL tokens into a TP_SEQ cache, then
+# teacher-forced decode of the next TP_DECODE
+TP_PREFILL, TP_DECODE = 24, 3
+TP_STEP_CASES = ["olmo-1b", "qwen2.5-3b", "qwen2-moe-a2.7b", "mamba2-2.7b"]
+# the dry run's FLOPs at world 2 against a real rank's
+TP_DRYRUN_ARCHS = ["olmo-1b", "qwen2-moe-a2.7b", "mamba2-2.7b"]
+TP_DRYRUN_BATCH = 2
+
+
+def tp_config(case):
+    """The port's reduced config of a TP_CASES entry."""
+    from repro_torch.configs import ARCHS, reduced
+    arch, over = TP_CASES[case]
+    return reduced(ARCHS[arch]).replace(**over)
+
+
+def masked_batch(vocab: int):
+    """ROADMAP C1's batch: tokens RandomState(0).randint(0, vocab, (4, 16)),
+    labels the tokens with rows 0-1 masked (-1) from position 2 on."""
+    toks = np.random.RandomState(0).randint(0, vocab, (4, 16)).astype(
+        np.int32)
+    labels = toks.copy()
+    labels[:2, 2:] = -1
+    return {"tokens": toks, "labels": labels}
+
+
+def save_tree(path, tree):
+    """A tree of numpy arrays (or tensors) -> an npz keyed by leaf path."""
+    from repro_torch.core import tree as T
+    np.savez(path, **{p: np.asarray(x) for p, x in T.leaves_with_path(tree)})
+
+
+def load_params(path, cfg):
+    """``save_tree``'s file -> the port's params of ``cfg`` on the CPU."""
+    import torch
+    from repro_torch.core import tree as T
+    from repro_torch.models import registry
+    like = registry.init(0, cfg, device="meta")
+    with np.load(path) as f:
+        return T.unflatten(like, [torch.from_numpy(f[p].copy())
+                                  for p, _ in T.leaves_with_path(like)])
+
+
+def _tp_forward(cfg, mesh, params, batch_np, out, key):
+    """Logits (this data rank's rows, every vocab column), the global
+    batch's loss and its gradient (whole leaves) of ``cfg`` on ``mesh``,
+    each rank on its model parts: into ``out`` under ``key``."""
+    from repro_torch.core import tree as T
+    from repro_torch.core.hier_sync import all_reduce
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry
+    step = make_train_step(cfg, mesh)
+    held = step.shard_params(params)
+    batch = T.from_numpy(step.local_batch(batch_np), "cpu")
+    with tp.model_parallel(step.model_group), \
+            L.global_label_count(step.group, step.n_data):
+        loss, grads = T.value_and_grad(lambda p, b: registry.loss_fn(
+            step.model_params(p), cfg, b))(held, batch)
+    grads = T.tree_map(lambda g: all_reduce(g, step.group) / step.n_data,
+                       grads)
+    pre = make_prefill_step(cfg, mesh)
+    logits, _ = pre(held, batch)
+    with tp.model_parallel(pre.model_group):
+        logits = tp.gather_from_model(logits, -1) \
+            if logits.shape[-1] != cfg.vocab_padded else logits
+    out[f"{key}/loss"] = (all_reduce(loss, step.group) / step.n_data).numpy()
+    out[f"{key}/logits"] = logits.numpy()
+    out[f"{key}/rows"] = np.array([step.index * batch["tokens"].shape[0],
+                                   batch["tokens"].shape[0]])
+    for path, g in T.leaves_with_path(step.gather_params(grads)):
+        out[f"{key}/grads/{path}"] = g.numpy()
+    out[f"{key}/n_split"] = np.array(sum(d is not None for d in step.model))
+
+
+def _tp_models(mesh_name, mesh, workdir, out):
+    from repro_torch.configs import reduced_batch
+    for case in TP_MESHES[mesh_name]:
+        cfg = tp_config(case)
+        params = load_params(os.path.join(
+            workdir, f"init_{case.replace('/', '_')}.npz"), cfg)
+        _tp_forward(cfg, mesh, params,
+                    reduced_batch(cfg, TP_BATCH, TP_SEQ), out,
+                    f"{mesh_name}/{case}")
+
+
+def _tp_steps(mesh, workdir, out):
+    """make_prefill_step / make_serve_step on ``mesh`` against the same
+    calls at world size 1 (registry.prefill / decode_step on the whole
+    params, in this process): the last position's logits of prefill and
+    of each decode step, and the caches gathered back."""
+    import torch
+    from repro_torch.configs import reduced_batch
+    from repro_torch.core import tree as T
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import registry
+    for case in TP_STEP_CASES:
+        cfg = tp_config(case)
+        params = load_params(os.path.join(workdir, f"init_{case}.npz"), cfg)
+        pre, serve = make_prefill_step(cfg, mesh), make_serve_step(cfg, mesh)
+        held = pre.shard_params(params)
+        toks = torch.from_numpy(reduced_batch(cfg, TP_BATCH,
+                                              TP_SEQ)["tokens"])
+        key = f"steps/{case}"
+
+        def whole(logits, step):
+            with tp.model_parallel(step.model_group):
+                return (tp.gather_from_model(logits, -1)
+                        if logits.shape[-1] != cfg.vocab_padded else logits)
+        got, cache = pre(held, {"tokens": toks[:, :TP_PREFILL]},
+                         max_seq=TP_SEQ)
+        want, wcache = registry.prefill(
+            params, cfg, {"tokens": toks[:, :TP_PREFILL]}, max_seq=TP_SEQ)
+        logits = [(whole(got, pre)[:, -1], want[:, -1])]
+        out[f"{key}/cache_shapes"] = np.array(
+            repr([tuple(x.shape) for x in T.leaves(cache)]))
+        for pos in range(TP_PREFILL, TP_PREFILL + TP_DECODE):
+            got, cache = serve(held, cache, pos, toks[:, pos:pos + 1])
+            want, wcache = registry.decode_step(params, cfg, wcache, pos,
+                                                toks[:, pos:pos + 1])
+            logits.append((whole(got, serve)[:, -1], want[:, -1]))
+        out[f"{key}/got"] = torch.stack([a for a, _ in logits]).numpy()
+        out[f"{key}/want"] = torch.stack([b for _, b in logits]).numpy()
+        for (path, a), b in zip(T.leaves_with_path(serve.gather_cache(cache)),
+                                T.leaves(wcache)):
+            out[f"{key}/cache/{path}"] = a.numpy()
+            out[f"{key}/want_cache/{path}"] = b.numpy()
+
+
+def _c1(workdir, out):
+    """ROADMAP C1: one step of each strategy, ZeRO-3 off and on, on the
+    masked batch over (data 2): the loss and the whole first moments."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.core import tree as T
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_custom_mesh
+    from repro_torch.optim import AdamW
+    cfg = reduced(ARCHS["olmo-1b"])
+    params = load_params(os.path.join(workdir, "init_olmo-1b.npz"), cfg)
+    mesh = make_custom_mesh("2x1", "cpu")
+    steps_mod.FSDP_MIN_SIZE = FSDP_MIN_SIZE
+    for strat in ("hier", "hier1", "allreduce"):
+        for fsdp in (False, True):
+            step = steps_mod.make_train_step(cfg, mesh, strategy=strat,
+                                             fsdp=fsdp,
+                                             optimizer=AdamW(lr=3e-4))
+            held = step.shard_params(params)
+            b = T.from_numpy(step.local_batch(masked_batch(cfg.vocab_size)),
+                             "cpu")
+            _, state, loss = step(held, step.init_opt_state(held), b)
+            key = f"c1/{strat}/{'fsdp' if fsdp else 'replicated'}"
+            out[f"{key}/loss"] = loss.numpy()
+            for path, x in T.leaves_with_path(step.gather_opt_state(state).mu):
+                out[f"{key}/mu/{path}"] = x.numpy()
+
+
+def _tp_dryrun_flops(out):
+    """Rank 0's FLOPs of the dry run's train step of each
+    TP_DRYRUN_ARCHS on a real "1x2" mesh (FlopCounterMode; seed-0
+    weights, a zero batch), as tests/test_torch_dryrun.py's world-1
+    check."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_custom_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.base import InputShape
+    steps_mod.FSDP_MIN_SIZE = FSDP_MIN_SIZE
+    shape = InputShape("train_small", TP_SEQ, TP_DRYRUN_BATCH, "train")
+    mesh = make_custom_mesh("1x2", "cpu")
+    for arch in TP_DRYRUN_ARCHS:
+        cfg = D.dryrun_config(arch, shape, cfg=reduced(ARCHS[arch]))
+        step = D.make_step(cfg, shape, mesh)
+        args = D.step_args(step, cfg, shape, device="cpu",
+                           init=lambda p: registry.init(0, cfg, "cpu"))
+        with FlopCounterMode(display=False) as flops:
+            step(*args)
+        out[f"dryrun/{arch}/flops"] = np.array(flops.get_total_flops())
+
+
+def suite_tp2(rank, world, workdir):
+    """2 ranks: the TP cases on (model 2), the prefill and serve steps on
+    (model 2), ROADMAP C1 on (data 2), and the dry run's world-2 FLOPs."""
+    from repro_torch.launch.mesh import make_custom_mesh
+    out = {}
+    _tp_models("1x2", make_custom_mesh("1x2", "cpu"), workdir, out)
+    _tp_steps(make_custom_mesh("1x2", "cpu"), workdir, out)
+    _c1(workdir, out)
+    _tp_dryrun_flops(out)
+    _save(workdir, "tp2", rank, out)
+
+
+def suite_tp4(rank, world, workdir):
+    """4 ranks: the TP cases on (model 4) and on (data 2, model 2), and
+    the reference's 40-step ``hier`` curve on (data 2, model 2), with
+    ZeRO-3 off and on, and on under remat, with the state after the first
+    step."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.launch.mesh import make_custom_mesh
+    out = {}
+    _tp_models("1x4", make_custom_mesh("1x4", "cpu"), workdir, out)
+    mesh = make_custom_mesh("2x2", "cpu")
+    _tp_models("2x2", mesh, workdir, out)
+    cfg = reduced(ARCHS["olmo-1b"])
+    params = load_params(os.path.join(workdir, "init_olmo-1b.npz"), cfg)
+    for key, run_cfg, fsdp in (
+            ("replicated", cfg, False), ("fsdp", cfg, True),
+            ("fsdp_remat", cfg.replace(remat=True), True)):
+        _run_steps(run_cfg, mesh, "hier", params, TRAIN_STEPS, out,
+                   f"curve2x2/{key}", fsdp=fsdp, snap=1)
+    _save(workdir, "tp4", rank, out)
+
+
 def main():
     suite, rank, world, workdir = sys.argv[1], int(sys.argv[2]), \
         int(sys.argv[3]), sys.argv[4]
@@ -291,8 +536,8 @@ def main():
         "gloo", init_method=f"file://{os.path.join(workdir, suite + '.init')}",
         world_size=world, rank=rank)
     try:
-        {"hier_sync": suite_hier_sync, "train": suite_train}[suite](
-            rank, world, workdir)
+        {"hier_sync": suite_hier_sync, "train": suite_train,
+         "tp2": suite_tp2, "tp4": suite_tp4}[suite](rank, world, workdir)
         dist.barrier()
     finally:
         dist.destroy_process_group()

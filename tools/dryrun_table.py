@@ -1,15 +1,18 @@
 """Run the port's dry run over every (arch, shape) pair on both production
-meshes, several pairs at a time, and print a markdown table of the
-per-rank terms.
+meshes, or on the meshes named by ``--mesh-shape``, several pairs at a
+time, and print a markdown table of the per-rank terms.
 
     PYTHONPATH=src python tools/dryrun_table.py --out experiments/dryrun \\
-        [--jobs 8] [--device cuda] [--arch ARCH ...]
+        [--jobs 8] [--device cuda] [--arch ARCH ...] \\
+        [--mesh-shape 32x8 --mesh-shape 2x32x8 ...]
 
 Each pair is one ``python -m repro_torch.launch.dryrun --arch A --shape S
---both-meshes --out DIR`` process; together they are the CLI's ``--all
---both-meshes`` (``--arch``, repeated, keeps only those archs' pairs).
-The table reads the per-pair JSON files. Exits 1, listing
-them, if any pair failed.
+--both-meshes --out DIR`` process (with ``--mesh-shape``, one process per
+pair and mesh); together they are the CLI's ``--all --both-meshes``
+(``--arch``, repeated, keeps only those archs' pairs). On a mesh with a
+model axis the families not ported to one (ROADMAP A16c) are marked
+skipped. The table reads the per-pair JSON files. Exits 1, listing them,
+if any pair failed.
 """
 from __future__ import annotations
 
@@ -27,30 +30,37 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.configs import pairs  # noqa: E402
 
 
-def run_pair(arch: str, shape: str, out: str, device: str):
+def run_pair(arch: str, shape: str, out: str, device: str, mesh=None):
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-           "--shape", shape, "--both-meshes", "--out", out, "--device",
-           device]
+           "--shape", shape, "--out", out, "--device", device]
+    cmd += ["--mesh-shape", mesh] if mesh else ["--both-meshes"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
     proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
                           cwd=ROOT)
-    with open(os.path.join(out, f"{arch}__{shape}.log"), "w") as f:
+    name = f"{arch}__{shape}" + (f"__{mesh}" if mesh else "")
+    with open(os.path.join(out, f"{name}.log"), "w") as f:
         f.write(proc.stdout + proc.stderr)
-    return arch, shape, proc.returncode
+    return arch, shape, mesh, proc.returncode
 
 
-def table(out: str) -> str:
-    """One row per (arch, shape): the per-rank terms on "256x1", and on
-    "2x256x1" where they differ (after a "/")."""
+PRODUCTION = ("256x1", "2x256x1")
+
+
+def table(out: str, meshes=PRODUCTION) -> str:
+    """One row per (arch, shape): the per-rank terms on each of
+    ``meshes`` in order, one value where they agree, else each (joined
+    by "/"); a pair skipped on a mesh (ROADMAP A16c) reads "skipped"."""
     runs = {}
     for path in sorted(glob.glob(os.path.join(out, "*.json"))):
         with open(path) as f:
             r = json.load(f)
-        runs.setdefault((r["arch"], r["shape"]), {})[r["mesh"]] = r
+        if r["mesh"] in meshes:
+            runs.setdefault((r["arch"], r["shape"]), {})[r["mesh"]] = r
 
     def both(rs, fmt):
-        vals = [fmt(rs[m]) for m in ("256x1", "2x256x1") if m in rs]
+        vals = [("skipped" if "skipped" in rs[m] else fmt(rs[m]))
+                for m in meshes if m in rs]
         return vals[0] if len(set(vals)) == 1 else " / ".join(vals)
 
     def mem(key, scale, digits):
@@ -66,7 +76,7 @@ def table(out: str) -> str:
             both(rs, lambda r: f"{r['collective_bytes'] / 1e9:.2f}"),
             both(rs, mem("argument_size_in_bytes", 2 ** 30, 2)),
             both(rs, mem("peak_memory_in_bytes", 2 ** 30, 1)),
-            " / ".join(str(rs[m]["trace_s"]) for m in ("256x1", "2x256x1")
+            " / ".join(str(rs[m].get("trace_s", "-")) for m in meshes
                        if m in rs)]) + " |")
     return "\n".join(rows)
 
@@ -78,18 +88,24 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--arch", action="append",
                     help="only this arch's pairs (repeatable)")
+    ap.add_argument("--mesh-shape", action="append",
+                    help="a mesh instead of the two production ones, e.g. "
+                    "32x8, 2x32x8, 16x16, 2x16x16 (repeatable)")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
-    todo = [(a, s) for a, s in pairs() if not args.arch or a in args.arch]
+    todo = [(a, s, m) for a, s in pairs() if not args.arch or a in args.arch
+            for m in (args.mesh_shape or [None])]
     with ThreadPoolExecutor(args.jobs) as pool:
-        done = list(pool.map(lambda p: run_pair(*p, args.out, args.device),
-                             todo))
-    print(table(args.out))
-    failed = [(a, s) for a, s, rc in done if rc]
+        done = list(pool.map(lambda p: run_pair(p[0], p[1], args.out,
+                                                args.device, p[2]), todo))
+    meshes = tuple(args.mesh_shape or PRODUCTION)
+    print(table(args.out, meshes))
+    failed = [(a, s, m) for a, s, m, rc in done if rc]
     if failed:
         print("FAILURES:", failed)
         raise SystemExit(1)
-    print(f"dry run complete: {len(done)} pairs x 2 meshes traced")
+    print(f"dry run complete: {len(todo) // len(args.mesh_shape or [1])} "
+          f"pairs x {len(meshes)} meshes traced or skipped")
 
 
 if __name__ == "__main__":
