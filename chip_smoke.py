@@ -206,8 +206,42 @@ non-zero before the result lines:
      within 1e-3 of world size 1's; exact launch counts, all on wgmma, at
      the local shapes (4, 8, 2048, 128) and (4, 2048, 40, 64); those
      shapes then held against their plain versions and timed as in phase
-     6. Times in phases 32-34 are of 2 ranks sharing one card through
-     gloo, not tensor-parallel speed.
+     6. Times in phases 32-37 are of 2 ranks sharing one card through
+     gloo, not tensor-parallel speed;
+ 35. scoring on "1x2" in bf16, seed 0, against world size 1: zamba2-7b
+     (4 x 4096; 16 of 32 heads and 56 of 112 SSD heads a rank),
+     llama-3.2-vision-90b cut to VISION_DEPTH layers (4 x 2048, 1600
+     image tokens, its gates opened to XATTN_GATE on both sides; the
+     cross K/V on 4 of 8 KV heads a rank), seamless-m4t-medium (8 x 2048,
+     512 frames), 2 evaluations, the first with every kernel call held
+     against its plain version; losses within 1e-3 of world size 1's;
+     exactly 13 flash + 81 SSD, 16 and 12 flash launches a rank per
+     evaluation, all on wgmma, at the local shapes (4, 16, 4096, 112),
+     (4, 4096, 56, 64), (4, 32, 2048, 128), (8, 8, 2048, 64); the weights
+     are cut to each rank's parts leaf by leaf (shard_leafwise), so that
+     llama-vision's 38.4 GB fit beside the other rank's half;
+ 36. the prefill and serve steps of the three on "1x2" in f32 against
+     world size 1 (zamba2 4 prompts of 4096 then 8 teacher-forced tokens,
+     so that its 4096-slot rings wrap; seamless, and llama-vision at
+     depth 5, 4 prompts of 2048): last-position logits within 1e-2 (relative
+     norm) at every step, greedy tokens' agreement printed, each rank's
+     cache half of every split leaf (ring, image_kv, cross_kv, SSM
+     state); no kernel launch;
+ 37. phase 32 under seq_shard (the stream split along the sequence between
+     the layers): losses against phase 32's world size 1 at its
+     tolerances, exact launches at (2, 8, 2048, 128); rank 0's FLOPs and
+     collectives equal lower_one's on "1x2" with seq_shard, and the
+     model group's per-layer all-reduces replaced by reduce-scatter /
+     all-gather pairs against phase 32's step; each rank's peak beside
+     phase 32's (olmo-1b's norms carry no scale, so no whole leaf is
+     read on the slice there);
+ 37b. zamba2-7b at full width, 6 Mamba2 layers and the shared block, f32
+     without the kernels, batch 2 x 2048, under seq_shard on "1x2": the
+     first gradient of every leaf a rank holds whole (norm scales, wB,
+     wC, conv_BC; read on the slice, their partial gradients summed over
+     the model group) within 1e-3 (relative norm) of world size 1's, then
+     3 hier steps' losses within 1e-3; then the local shapes of phase 35
+     held against their plain versions and timed as in phase 6.
 
 The second-to-last line is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero without.
@@ -1846,6 +1880,34 @@ TP_SCORE_BATCH = 4           # phase 34
 TP_SCORE_EVALS = 2           # the first held against the plain versions
 TP_SCORE_RTOL = 1e-3         # phase 34's losses against world size 1
 TP_SCORE_ARCHS = ("qwen2-moe-a2.7b", "mamba2-2.7b")
+# phases 35-37: the hybrid, vlm and audio families on "1x2", and seq_shard.
+# Phase 35 scores each at its own phase-13 / phase-21 cell, (batch, seq),
+# llama-vision cut to VISION_DEPTH; phase 36 serves each in f32 after a
+# prompt of its seq (zamba2's 4096 fills its 4096-slot ring, so that the
+# decode wraps it), llama-vision cut to one cross group so that f32 fits
+TP_FAMILY_CELLS = {"zamba2-7b": (HYBRID_BATCH, HYBRID_SEQ),
+                   "llama-3.2-vision-90b": (VISION_BATCH, SEQ),
+                   "seamless-m4t-medium": (GLOBAL_BATCH, SEQ)}
+TP_SERVE_DEPTH = {"llama-3.2-vision-90b": 5}
+
+
+def tp_family_config(arch: str, depth=None):
+    """A phase 35-36 model: ARCHS[arch] at ``depth`` (default all its
+    layers; llama-vision VISION_DEPTH)."""
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[arch]
+    if depth is None and cfg.family == "vlm":
+        depth = VISION_DEPTH
+    return cfg if depth is None else cfg.replace(n_layers=depth)
+
+
+def open_gates(params, cfg):
+    """The vlm's cross gates opened to XATTN_GATE (they are zero at init,
+    which would hide a broken cross layer); others as they are."""
+    if cfg.family == "vlm":
+        for g in ("gate_attn", "gate_mlp"):
+            params["cross"][g].fill_(XATTN_GATE)
+    return params
 
 
 @contextlib.contextmanager
@@ -1881,19 +1943,42 @@ def tp_mesh():
 
 
 def tp_held(step, cfg, device):
-    """Seed-0 weights drawn on the card (the world-1 phases' weights) and
-    cut to this rank's model parts, one rank at a time (two whole copies
-    of qwen2-moe and the ranks' parts would not fit at once)."""
+    """Seed-0 weights drawn on the card (the world-1 phases' weights, the
+    vlm's gates opened) and cut to this rank's model parts, one rank at a
+    time (two whole copies of qwen2-moe and the ranks' parts would not fit
+    at once)."""
     import torch
     import torch.distributed as dist
     from repro_torch.models import registry
     held = None
     for r in range(dist.get_world_size()):
         if r == dist.get_rank():
-            held = step.shard_params(registry.init(0, cfg, device))
+            held = shard_leafwise(step, open_gates(
+                registry.init(0, cfg, device), cfg))
             torch.cuda.empty_cache()
         dist.barrier()
     return held
+
+
+def shard_leafwise(step, params):
+    """``step.shard_params(params)`` for a step without ZeRO-3, done in
+    place leaf by leaf, each whole leaf dropped once its part is copied:
+    the peak is the whole model and one part leaf, not the whole and every
+    part (llama-vision's 38.4 GB at 20 layers, beside the other rank's
+    19.2, would not fit twice)."""
+    from repro_torch.core import tree as T
+    from repro_torch.distributed.sharding import model_part
+    require(not any(step.fsdp), "shard_leafwise takes no ZeRO-3 step")
+    paths = [p for p, _ in T.leaves_with_path(params)]
+    for path, md in zip(paths, step.model):
+        *keys, last = path.split("/")
+        node = params
+        for k in keys:
+            node = node[k]
+        if md is not None:
+            node[last] = model_part(node[last], md, step.n_model,
+                                    step.model_index).clone()
+    return params
 
 
 def tp_whole_logits(step, logits):
@@ -1904,20 +1989,22 @@ def tp_whole_logits(step, logits):
         return tp.gather_from_model(logits.float().contiguous(), -1)
 
 
-def tp_train_rank(device, workdir):
-    """Phase 32 on one rank: launch/train.py::train with the hier step on
-    "1xTP_RANKS", then one more step of the same program under
-    FlopCounterMode."""
+def tp_train_rank(device, workdir, seq: bool = False):
+    """Phase 32 (37 with ``seq``: seq_shard) on one rank:
+    launch/train.py::train with the hier step on "1xTP_RANKS", then one
+    more step of the same program under FlopCounterMode and the
+    collective recorder."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import ARCHS
     from repro_torch.core import tree as T
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import dryrun as D
+    from repro_torch.launch.hlo_stats import CollectiveRecorder
     from repro_torch.launch.train import train
     from repro_torch.models import registry
     from repro_torch.models.base import InputShape
-    cfg = ARCHS["olmo-1b"].replace(use_flash_kernel=True)
+    cfg = ARCHS["olmo-1b"].replace(use_flash_kernel=True, seq_shard=seq)
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     shapes = {}
@@ -1937,14 +2024,17 @@ def tp_train_rank(device, workdir):
     torch.cuda.empty_cache()
     shape = InputShape(f"train_{TP_TRAIN_BATCH}x{SEQ}", SEQ,
                        TP_TRAIN_BATCH, "train")
-    dcfg = D.dryrun_config("olmo-1b", shape, remat=False)
+    dcfg = D.dryrun_config("olmo-1b", shape, remat=False,
+                           overrides={"seq_shard": seq})
     step = D.make_step(dcfg, shape, tp_mesh(), fsdp=False)
     args = D.step_args(step, dcfg, shape, device=device,
                        init=lambda p: registry.init(0, dcfg, device))
-    with FlopCounterMode(display=False) as flops:
+    with FlopCounterMode(display=False) as flops, \
+            CollectiveRecorder() as rec:
         step(*args)
     torch.cuda.synchronize()
     out["flops"] = flops.get_total_flops()
+    out["collectives"] = rec.stats()
     return out
 
 
@@ -1995,21 +2085,81 @@ def tp_serve_rank(device, workdir):
     return out
 
 
-def tp_prompts(cfg):
-    """Phase 33's tokens: TP prompts of SEQ and the decode's next
-    TP_DECODE_TOKENS, from RandomState(0)."""
+def tp_prompts(cfg, seq: int = SEQ):
+    """Phase 33's (36's) tokens: SERVE_REQUESTS prompts of ``seq`` and the
+    decode's next TP_DECODE_TOKENS, from RandomState(0)."""
     import numpy as np
     rng = np.random.RandomState(0)
-    return rng.randint(0, cfg.vocab_size, (SERVE_REQUESTS, SEQ
+    return rng.randint(0, cfg.vocab_size, (SERVE_REQUESTS, seq
                                            + TP_DECODE_TOKENS)).astype(
         np.int32)
 
 
-def tp_score_rank(device, workdir):
-    """Phase 34 on one rank: each TP_SCORE_ARCHS scored TP_SCORE_EVALS
-    times on "1xTP_RANKS" (its model parts through a prefill step's
-    shard_params), the first evaluation with every kernel call held
-    against its plain version."""
+def steps_logits(prefill, serve, params, cfg, device, seq: int,
+                 whole=lambda step, x: x.float()):
+    """Prefill of phase 36's prompts of ``seq`` (with the modality inputs
+    of the vlm and audio models) and TP_DECODE_TOKENS teacher-forced
+    serve steps: (the last position's logits of each, as ``whole`` makes
+    them, (b, steps, V); the cache; prefill seconds; decode seconds)."""
+    import torch
+    toks = torch.from_numpy(tp_prompts(cfg, seq)).to(device)
+    batch = dict(modality_inputs(cfg, SERVE_REQUESTS, seq, device),
+                 tokens=toks[:, :seq])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch, max_seq=seq + TP_DECODE_TOKENS)
+    last = [whole(prefill, logits[:, -1])]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for t in range(TP_DECODE_TOKENS):
+        logits, cache = serve(params, cache, seq + t,
+                              toks[:, seq + t:seq + t + 1])
+        last.append(whole(serve, logits[:, -1]))
+    torch.cuda.synchronize()
+    return torch.stack(last, 1), cache, t1 - t0, time.perf_counter() - t1
+
+
+def tp_serve_families_rank(device, workdir):
+    """Phase 36 on one rank: make_prefill_step and make_serve_step on
+    "1xTP_RANKS" for each TP_FAMILY_CELLS model in f32 (llama-vision at
+    TP_SERVE_DEPTH); rank 0 writes the last position's logits of each
+    step (serve_logits_<arch>.npy)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import tree as T
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    out = {}
+    for arch, (_, seq) in TP_FAMILY_CELLS.items():
+        cfg = tp_family_config(arch, TP_SERVE_DEPTH.get(arch)).replace(
+            dtype=torch.float32)
+        mesh = tp_mesh()
+        prefill = make_prefill_step(cfg, mesh)
+        serve = make_serve_step(cfg, mesh)
+        held = tp_held(prefill, cfg, device)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        last, cache, pre_s, dec_s = steps_logits(
+            prefill, serve, held, cfg, device, seq, whole=tp_whole_logits)
+        if dist.get_rank() == 0:
+            np.save(Path(workdir) / f"serve_logits_{arch}.npy",
+                    last.cpu().numpy())
+        out[arch] = dict(prefill_s=pre_s, decode_s=dec_s,
+                         launches=kernel_counts(),
+                         cache_shapes={p: list(x.shape) for p, x in
+                                       T.leaves_with_path(cache)},
+                         peak_bytes=torch.cuda.max_memory_allocated())
+        del held, cache, last
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_score_rank(device, workdir, cells=None):
+    """Phase 34 (35) on one rank: each model of ``cells`` (arch -> (batch,
+    seq); default TP_SCORE_ARCHS at TP_SCORE_BATCH x SEQ) scored
+    TP_SCORE_EVALS times on "1xTP_RANKS" (its model parts through a
+    prefill step's shard_params), the first evaluation with every kernel
+    call held against its plain version."""
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.distributed import tensor_parallel as tp
@@ -2017,16 +2167,17 @@ def tp_score_rank(device, workdir):
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch.steps import make_prefill_step
     out = {}
-    for arch in TP_SCORE_ARCHS:
-        cfg = ARCHS[arch].replace(use_flash_kernel=True,
-                                  use_ssd_kernel=True)
+    cells = cells or {a: (TP_SCORE_BATCH, SEQ) for a in TP_SCORE_ARCHS}
+    for arch, (batch, seq) in cells.items():
+        cfg = tp_family_config(arch).replace(use_flash_kernel=True,
+                                             use_ssd_kernel=True)
         step = make_prefill_step(cfg, tp_mesh())
         held = tp_held(step, cfg, device)
         torch.cuda.reset_peak_memory_stats()
         record, shapes = [], {}
         with tp.model_parallel(step.model_group), kernel_shapes(shapes):
             losses, secs, launches = run_scoring(
-                cfg, step.model_params(held), device, TP_SCORE_BATCH, SEQ,
+                cfg, step.model_params(held), device, batch, seq,
                 TP_SCORE_EVALS, held=record)
         out[arch] = dict(
             losses=losses, secs=secs, launches=launches, shapes=shapes,
@@ -2044,41 +2195,156 @@ def local_shape(cfg, batch_size: int):
     return (batch_size, cfg.n_heads // TP_RANKS, SEQ, cfg.resolved_head_dim)
 
 
-def run_steps_logits(cfg, device):
-    """Phase 33 at world size 1: tp_serve_rank's calls on a one-rank mesh;
-    returns (the last position's logits of each step, (b, steps, V) f32
-    numpy, prefill seconds, decode seconds)."""
+def run_steps_logits(cfg, device, seq: int = SEQ):
+    """Phase 33 (36) at world size 1: tp_serve_rank's calls on a one-rank
+    mesh; returns (the last position's logits of each step, (b, steps, V)
+    f32 numpy, prefill seconds, decode seconds, the cache's shapes)."""
     import torch
+    from repro_torch.core import tree as T
     from repro_torch.launch.mesh import make_custom_mesh, process_group
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import registry
-    params = registry.init(0, cfg, device)
-    toks = torch.from_numpy(tp_prompts(cfg)).to(device)
+    params = open_gates(registry.init(0, cfg, device), cfg)
     with process_group(device):
         mesh = make_custom_mesh("1x1", device.type)
-        prefill = make_prefill_step(cfg, mesh)
-        serve = make_serve_step(cfg, mesh)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": toks[:, :SEQ]},
-                                max_seq=SEQ + TP_DECODE_TOKENS)
-        last = [logits[:, -1].float()]
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for t in range(TP_DECODE_TOKENS):
-            logits, cache = serve(params, cache, SEQ + t,
-                                  toks[:, SEQ + t:SEQ + t + 1])
-            last.append(logits[:, -1].float())
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        out = torch.stack(last, 1).cpu().numpy()
-        del params, cache, logits
+        last, cache, pre_s, dec_s = steps_logits(
+            make_prefill_step(cfg, mesh), make_serve_step(cfg, mesh),
+            params, cfg, device, seq)
+        out = last.cpu().numpy()
+        shapes = {p: list(x.shape) for p, x in T.leaves_with_path(cache)}
+        del params, cache, last
     torch.cuda.empty_cache()
-    return out, t1 - t0, t2 - t1
+    return out, pre_s, dec_s, shapes
+
+
+# phase 37b: a model whose whole leaves are read on the sequence slice
+# (olmo-1b's layer norms carry no scale, so phase 37 reads none and its
+# losses cannot show the sum of their partial gradients): zamba2-7b at full
+# width, cut to one group of attn_every Mamba2 layers and the shared
+# block, in f32 without the kernels. Each whole leaf's first gradient (the
+# norm scales, the SSM layers' wB / wC / conv_BC) is held against world
+# size 1's by its relative norm, far below the ~1/2 that a rank's partial
+# gradient lies from the whole
+SEQ_LEAF_ARCH = "zamba2-7b"
+SEQ_LEAF_BATCH = 2
+SEQ_LEAF_GRAD_REL = 1e-3
+
+
+def seq_leaf_setup(device):
+    """Phase 37b's config (seq_shard on) and its batch of SEQ_LEAF_BATCH
+    x SEQ tokens from RandomState(0), the labels the tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[SEQ_LEAF_ARCH]
+    cfg = cfg.replace(n_layers=cfg.attn_every, dtype=torch.float32,
+                      seq_shard=True)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (SEQ_LEAF_BATCH, SEQ)).astype(np.int32)).to(
+        device)
+    return cfg, {"tokens": toks, "labels": toks}
+
+
+def seq_leaf_run(step, params, batch, paths=None):
+    """The batch's loss and gradient on ``step``, then TP_TRAIN_STEPS steps
+    on it from a fresh AdamW state: (the gradient of each leaf of
+    ``paths``, default every leaf the step holds whole, as f32 numpy; the
+    steps' losses)."""
+    from repro_torch.core import tree as T
+    _, grads = step.loss_and_grads(params, batch)
+    whole = {p: g.float().cpu().numpy() for (p, g), md in
+             zip(T.leaves_with_path(grads), step.model)
+             if (md is None if paths is None else p in paths)}
+    del grads
+    opt, losses = step.init_opt_state(params), []
+    for _ in range(TP_TRAIN_STEPS):
+        params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))
+    return whole, losses
+
+
+def tp_seq_leaf_rank(device, workdir):
+    """Phase 37b on one rank: seq_leaf_run on "1xTP_RANKS" with this
+    rank's model parts; the whole leaves' gradients into
+    DIR/seq_leaves_rank<r>.npz."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.steps import make_train_step
+    cfg, batch = seq_leaf_setup(device)
+    step = make_train_step(cfg, tp_mesh(), strategy="hier")
+    held = tp_held(step, cfg, device)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    whole, losses = seq_leaf_run(step, held, step.local_batch(batch))
+    np.savez(Path(workdir) / f"seq_leaves_rank{dist.get_rank()}.npz",
+             **whole)
+    return dict(losses=losses, launches=kernel_counts(),
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def check_seq_leaves(device, tp_note: str):
+    """Phase 37b: tp_seq_leaf_rank's ranks against seq_leaf_run at world
+    size 1: every whole leaf's gradient within SEQ_LEAF_GRAD_REL (relative
+    norm), the losses within TP_SCORE_RTOL, no kernel launch."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_custom_mesh, process_group
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import registry
+    cfg, batch = seq_leaf_setup(device)
+    log(f"[37b] seq_shard with whole leaves read on the slice: "
+        f"{cfg.arch_id} at full width, {cfg.n_layers} Mamba2 layers and "
+        f"the shared block, f32 without the kernels (seed 0), batch "
+        f"{SEQ_LEAF_BATCH} x {SEQ}: the first gradient of every leaf each "
+        f"rank holds whole, then {TP_TRAIN_STEPS} hier steps, on "
+        f"1x{TP_RANKS} against world size 1; {tp_note}")
+    t0 = time.perf_counter()
+    tr, tr_dir = run_tp_world("seq_leaves")
+    grads = [dict(np.load(Path(tr_dir) / f"seq_leaves_rank{r}.npz"))
+             for r in range(TP_RANKS)]
+    shutil.rmtree(tr_dir, ignore_errors=True)
+    log(f"  the ranks' phase took {time.perf_counter() - t0:.1f} s")
+    paths = sorted(grads[0])
+    require(any(p.endswith("ln/scale") for p in paths)
+            and any(p.endswith("/wB") for p in paths)
+            and "final_norm/scale" in paths,
+            f"phase 37b's whole leaves {paths}: no norm scale or wB")
+    params = registry.init(0, cfg, device)
+    with process_group(device):
+        step = make_train_step(cfg, make_custom_mesh("1x1", device.type),
+                               strategy="hier")
+        w_grads, w_losses = seq_leaf_run(step, params, batch, set(paths))
+    del params, step
+    torch.cuda.empty_cache()
+    for rank, (r, g) in enumerate(zip(tr, grads)):
+        require(sorted(g) == paths, f"rank {rank}'s whole leaves {sorted(g)}")
+        rels = {p: float(np.linalg.norm(g[p] - w_grads[p])
+                         / max(float(np.linalg.norm(w_grads[p])), 1e-30))
+                for p in paths}
+        errs = [abs(a - b) / abs(b) for a, b in zip(r["losses"], w_losses)]
+        log(f"  rank {rank}: whole leaves' gradients against world size 1 "
+            f"(relative norm, limit {SEQ_LEAF_GRAD_REL}): {rels}; losses "
+            f"{r['losses']} against {w_losses} (relative {errs}, limit "
+            f"{TP_SCORE_RTOL}); peak {r['peak_bytes']} bytes "
+            f"({r['peak_bytes'] / 2**30:.2f} GiB), launches {r['launches']}")
+        require(max(rels.values()) <= SEQ_LEAF_GRAD_REL,
+                f"rank {rank}'s whole-leaf gradients off: {rels}")
+        require(max(errs) <= TP_SCORE_RTOL,
+                f"rank {rank}'s losses {r['losses']} against {w_losses}")
+        require(r["launches"] == want_launches(),
+                f"rank {rank} launched {r['launches']}: the f32 step with "
+                "the kernels off launches none")
 
 
 TP_TASKS = {"train": tp_train_rank, "serve": tp_serve_rank,
-            "score": tp_score_rank}
+            "score": tp_score_rank,
+            "score_families": lambda device, workdir: tp_score_rank(
+                device, workdir, TP_FAMILY_CELLS),
+            "serve_families": tp_serve_families_rank,
+            "train_seq": lambda device, workdir: tp_train_rank(
+                device, workdir, seq=True),
+            "seq_leaves": tp_seq_leaf_rank}
 
 
 def tp_rank_main(task: str, rank: int, world: int, workdir: str) -> int:
@@ -2158,6 +2424,62 @@ def run_tp_world(task: str):
     return results, workdir
 
 
+def check_tp_scores(cells: dict, sc: list, w_score: dict,
+                    tp_note: str) -> dict:
+    """Phases 34 and 35: each rank's scoring of each model of ``cells``
+    (arch -> (cfg, batch, seq)) against world size 1's (``w_score``: arch
+    -> run_scoring's result): losses within TP_SCORE_RTOL, exact launch
+    counts, all on wgmma, at the local kernel shapes, and the first
+    evaluation's every kernel call held. Returns each arch's measured
+    launches of each kernel, summed over the ranks."""
+    tp_launches = {}
+    for arch, (c, batch, seq) in cells.items():
+        w_losses = w_score[arch][0]
+        kinds = {}
+        if attention_sites(c):
+            kinds["flash"] = ("flash_attention", attention_sites(c), str((
+                batch, c.n_heads // TP_RANKS, seq, c.resolved_head_dim)))
+        if c.family in ("ssm", "hybrid"):
+            kinds["ssd"] = ("ssd_scan", c.n_layers, str((
+                batch, seq, c.ssm_nheads // TP_RANKS, c.ssm_headdim)))
+        want = want_launches(**{k: n * TP_SCORE_EVALS
+                                for k, (_, n, _) in kinds.items()})
+        local = {k: {shape: want[key]} for k, (key, _, shape)
+                 in kinds.items()}
+        for rank, res in enumerate(sc):
+            r = res[arch]
+            errs = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                        w_losses)]
+            held = max(x for _, x in r["held"])
+            log(f"  {arch} rank {rank}: losses {r['losses']} against world "
+                f"size 1's {w_losses} (relative {errs}, tolerance "
+                f"{TP_SCORE_RTOL}); seconds {r['secs']} against "
+                f"{w_score[arch][1]} ({tp_note}); peak {r['peak_bytes']} "
+                f"bytes ({r['peak_bytes'] / 2**30:.2f} GiB); launches "
+                f"{r['launches']}, routes {r['routes']}, shapes "
+                f"{r['shapes']}; {len(r['held'])} kernel calls held against "
+                f"plain, worst relative norm error {held:.3e}")
+            require(max(errs) <= TP_SCORE_RTOL,
+                    f"{arch} rank {rank}'s losses {r['losses']} against "
+                    f"{w_losses}")
+            require(r["launches"] == want,
+                    f"{arch} rank {rank}'s launches {r['launches']} != {want}")
+            for kind, (key, _, _) in kinds.items():
+                require(r["routes"][kind] == {"wgmma": want[key],
+                                              "cuda_cores": 0},
+                        f"{arch} rank {rank}'s {kind} routes {r['routes']}")
+            require(r["shapes"] == local,
+                    f"{arch} rank {rank}'s kernel shapes {r['shapes']}, "
+                    f"want {local}")
+            n = sum(want[key] for key, _, _ in kinds.values())
+            require(len(r["held"]) == n // TP_SCORE_EVALS,
+                    f"{arch} rank {rank}: {len(r['held'])} calls held")
+            got = tp_launches.setdefault(arch, {})
+            for key, _, _ in kinds.values():
+                got[key] = got.get(key, 0) + r["launches"][key]
+    return tp_launches
+
+
 def run_tp_phases(device, gen, card: str, flash_rows: list,
                   ssd_rows: list):
     """Phases 32-34: tensor parallelism on a model axis of TP_RANKS, each
@@ -2179,6 +2501,7 @@ def run_tp_phases(device, gen, card: str, flash_rows: list,
         f"against the same steps at world size 1; {tp_note}")
     w_losses, w_step_s, _, _, w_peak = run_hier_training(
         tcfg, device, TP_TRAIN_BATCH, SEQ, TP_TRAIN_STEPS)
+    w_losses32 = w_losses
     t0 = time.perf_counter()
     tr, tr_dir = run_tp_world("train")
     shutil.rmtree(tr_dir, ignore_errors=True)
@@ -2241,7 +2564,7 @@ def run_tp_phases(device, gen, card: str, flash_rows: list,
     tp_vs_w = rel_norms(t_logits["bfloat16"], bf16)
     tp_vs_f32 = rel_norms(t_logits["bfloat16"], f32)
     w_vs_f32 = rel_norms(bf16, f32)
-    for name, (w_logits, w_pre_s, w_dec_s) in w_steps.items():
+    for name, (w_logits, w_pre_s, w_dec_s, _) in w_steps.items():
         agree = float(np.mean(t_logits[name][..., :vocab].argmax(-1)
                               == w_logits[..., :vocab].argmax(-1)))
         log(f"  {name}: greedy tokens agree at {agree!r} of "
@@ -2286,47 +2609,9 @@ def run_tp_phases(device, gen, card: str, flash_rows: list,
         torch.cuda.empty_cache()
     sc, sc_dir = run_tp_world("score")
     shutil.rmtree(sc_dir, ignore_errors=True)
-    tp_launches = {}
-    for arch in TP_SCORE_ARCHS:
-        c = ARCHS[arch]
-        w_losses = w_score[arch][0]
-        if c.family == "ssm":
-            want = want_launches(ssd=c.n_layers * TP_SCORE_EVALS)
-            local = {"ssd": {str((TP_SCORE_BATCH, SEQ,
-                                  c.ssm_nheads // TP_RANKS,
-                                  c.ssm_headdim)): want["ssd_scan"]}}
-        else:
-            want = want_launches(flash=c.n_layers * TP_SCORE_EVALS)
-            local = {"flash": {str((TP_SCORE_BATCH, c.n_heads // TP_RANKS,
-                                    SEQ, c.resolved_head_dim)):
-                               want["flash_attention"]}}
-        for rank, res in enumerate(sc):
-            r = res[arch]
-            errs = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
-                                                        w_losses)]
-            held = max(x for _, x in r["held"])
-            log(f"  {arch} rank {rank}: losses {r['losses']} against world "
-                f"size 1's {w_losses} (relative {errs}, tolerance "
-                f"{TP_SCORE_RTOL}); seconds {r['secs']} against "
-                f"{w_score[arch][1]} ({tp_note}); peak {r['peak_bytes']} "
-                f"bytes; launches {r['launches']}, routes {r['routes']}, "
-                f"shapes {r['shapes']}; {len(r['held'])} kernel calls held "
-                f"against plain, worst relative norm error {held:.3e}")
-            require(max(errs) <= TP_SCORE_RTOL,
-                    f"{arch} rank {rank}'s losses {r['losses']} against "
-                    f"{w_losses}")
-            require(r["launches"] == want,
-                    f"{arch} rank {rank}'s launches {r['launches']} != {want}")
-            kind = "ssd" if c.family == "ssm" else "flash"
-            n = want["ssd_scan" if kind == "ssd" else "flash_attention"]
-            require(r["routes"][kind] == {"wgmma": n, "cuda_cores": 0},
-                    f"{arch} rank {rank}'s {kind} routes {r['routes']}")
-            require(r["shapes"] == local,
-                    f"{arch} rank {rank}'s kernel shapes {r['shapes']}, "
-                    f"want {local}")
-            require(len(r["held"]) == n // TP_SCORE_EVALS,
-                    f"{arch} rank {rank}: {len(r['held'])} calls held")
-            tp_launches[arch] = tp_launches.get(arch, 0) + n
+    tp_launches = check_tp_scores(
+        {a: (ARCHS[a], TP_SCORE_BATCH, SEQ) for a in TP_SCORE_ARCHS}, sc,
+        w_score, tp_note)
     ssm = ARCHS["mamba2-2.7b"]
     qwen = ARCHS["qwen2-moe-a2.7b"]
     tp_flash_shapes = [
@@ -2343,9 +2628,10 @@ def run_tp_phases(device, gen, card: str, flash_rows: list,
     tp_errs = check_flash_shapes(device, tp_flash_shapes, gen)
     tp_ssd_err = check_ssd_shape(device, tp_ssd_shape, gen,
                                  f"{ssm.arch_id} (1x{TP_RANKS} rank)")
-    tp_counts = {tp_flash_shapes[0][0]: TP_RANKS * tcfg.n_layers
-                 * TP_TRAIN_STEPS,
-                 tp_flash_shapes[1][0]: tp_launches[qwen.arch_id]}
+    tp_counts = {tp_flash_shapes[0][0]: sum(
+                     r["launches"]["flash_attention"] for r in tr),
+                 tp_flash_shapes[1][0]:
+                 tp_launches[qwen.arch_id]["flash_attention"]}
     for name, shape, window in tp_flash_shapes:
         t = time_flash(device, shape, gen, window=window)
         flash_rows.append(dict(model=name, shape=list(shape), window=window,
@@ -2355,9 +2641,188 @@ def run_tp_phases(device, gen, card: str, flash_rows: list,
     t, cc_ms = time_ssd(device, tp_ssd_shape, gen)
     ssd_rows.append(dict(model=f"{ssm.arch_id} (1x{TP_RANKS} rank)",
                          shape=list(tp_ssd_shape),
-                         launches=tp_launches[ssm.arch_id],
+                         launches=tp_launches[ssm.arch_id]["ssd_scan"],
                          max_abs_err=tp_ssd_err, cuda_cores_ms=cc_ms, **t))
     log(f"  ssd_scan at {ssm.arch_id}'s local shape: {ssd_rows[-1]}")
+    return dict(w_losses=w_losses32, peaks=[r["peak_bytes"] for r in tr],
+                collectives=pred["collectives"], tp_note=tp_note)
+
+
+def run_tp_family_phases(device, gen, card: str, flash_rows: list,
+                         ssd_rows: list, p32: dict):
+    """Phases 35-37: the hybrid, vlm and audio families on "1xTP_RANKS"
+    (scoring in bf16 and the prefill and serve steps in f32, each against
+    world size 1), then phase 32's training under seq_shard; the local
+    kernel shapes' rows go into ``flash_rows`` and ``ssd_rows``."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import registry
+    from repro_torch.models.base import InputShape
+    tp_note = p32["tp_note"]
+    cells = {a: (tp_family_config(a).replace(use_flash_kernel=True,
+                                             use_ssd_kernel=True), b, s)
+             for a, (b, s) in TP_FAMILY_CELLS.items()}
+    log(f"[35] scoring on 1x{TP_RANKS} in bf16 (seed 0): "
+        + "; ".join(f"{a} {c.n_layers} layers, {b} x {s}" for a, (c, b, s)
+                    in cells.items())
+        + f" (the vlm's gates opened to {XATTN_GATE} on both sides), "
+        f"{TP_SCORE_EVALS} evaluations (the first with every kernel call "
+        f"held against its plain version), against world size 1; "
+        f"{tp_note}")
+    w_score = {}
+    for arch, (c, b, s) in cells.items():
+        params = open_gates(registry.init(0, c, device), c)
+        w_score[arch] = run_scoring(c, params, device, b, s, TP_SCORE_EVALS)
+        del params
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sc, sc_dir = run_tp_world("score_families")
+    shutil.rmtree(sc_dir, ignore_errors=True)
+    log(f"  the ranks' phase took {time.perf_counter() - t0:.1f} s")
+    tp_launches = check_tp_scores(cells, sc, w_score, tp_note)
+
+    serve = {a: tp_family_config(a, TP_SERVE_DEPTH.get(a)).replace(
+        dtype=torch.float32) for a in TP_FAMILY_CELLS}
+    log(f"[36] the prefill and serve steps on 1x{TP_RANKS} in f32 (seed 0): "
+        + "; ".join(f"{a} {serve[a].n_layers} layers, {SERVE_REQUESTS} "
+                    f"prompts of {s}" for a, (_, s) in TP_FAMILY_CELLS.items())
+        + f", then {TP_DECODE_TOKENS} teacher-forced tokens, against the "
+        f"same steps at world size 1; {tp_note}")
+    w_steps = {a: run_steps_logits(serve[a], device, s)
+               for a, (_, s) in TP_FAMILY_CELLS.items()}
+    t0 = time.perf_counter()
+    sv, sv_dir = run_tp_world("serve_families")
+    t_logits = {a: np.load(Path(sv_dir) / f"serve_logits_{a}.npy")
+                for a in w_steps}
+    shutil.rmtree(sv_dir, ignore_errors=True)
+    log(f"  the ranks' phase took {time.perf_counter() - t0:.1f} s")
+    for arch, (w_logits, w_pre_s, w_dec_s, w_shapes) in w_steps.items():
+        got = t_logits[arch]
+        rels = [float(np.linalg.norm(got[:, i] - w_logits[:, i])
+                      / np.linalg.norm(w_logits[:, i]))
+                for i in range(w_logits.shape[1])]
+        v = serve[arch].vocab_size
+        agree = float(np.mean(got[..., :v].argmax(-1)
+                              == w_logits[..., :v].argmax(-1)))
+        log(f"  {arch}: last-position logits against world size 1, relative "
+            f"norm per step (prefill, then each decode): {rels} (limit "
+            f"{TP_LOGITS_REL_NORM}); greedy tokens agree at {agree!r} of "
+            f"{w_logits.shape[0] * w_logits.shape[1]} positions; world size "
+            f"1: prefill {w_pre_s!r} s, decode {w_dec_s!r} s, cache "
+            f"{w_shapes}")
+        for k, r in enumerate(sv):
+            r = r[arch]
+            log(f"  {arch} rank {k}: prefill {r['prefill_s']!r} s, decode "
+                f"{r['decode_s']!r} s, cache (the rank's part) "
+                f"{r['cache_shapes']}, peak {r['peak_bytes']} bytes "
+                f"({r['peak_bytes'] / 2**30:.2f} GiB), launches "
+                f"{r['launches']} ({tp_note})")
+            require(r["launches"] == want_launches(),
+                    f"{arch}'s steps launched {r['launches']}: the f32 "
+                    "steps run no kernel")
+            for path, whole in w_shapes.items():
+                part = r["cache_shapes"][path]
+                split = [i for i, (a, b) in enumerate(zip(part, whole))
+                         if a != b]
+                require(part == whole if path.endswith("conv_BC") else
+                        len(split) == 1 and part[split[0]] * TP_RANKS
+                        == whole[split[0]],
+                        f"{arch} rank {k}'s cache {path} {part}: not a "
+                        f"model part of {whole}")
+        require(max(rels) <= TP_LOGITS_REL_NORM,
+                f"{arch}'s tensor-parallel f32 logits off by {max(rels)!r}")
+
+    log(f"[37] phase 32 under seq_shard: olmo-1b bf16 (seed 0) through "
+        f"launch/train.py::train with the hier step on 1x{TP_RANKS}, batch "
+        f"{TP_TRAIN_BATCH} x {SEQ}, {TP_TRAIN_STEPS} steps, the stream split "
+        f"along the sequence between the layers, against phase 32's world "
+        f"size 1 losses; {tp_note}")
+    t0 = time.perf_counter()
+    tr, tr_dir = run_tp_world("train_seq")
+    shutil.rmtree(tr_dir, ignore_errors=True)
+    log(f"  the ranks' phase took {time.perf_counter() - t0:.1f} s")
+    w_losses = p32["w_losses"]
+    olmo = tp_family_config("olmo-1b")
+    want = want_launches(flash=olmo.n_layers * TP_TRAIN_STEPS)
+    local = (TP_TRAIN_BATCH, olmo.n_heads // TP_RANKS, SEQ,
+             olmo.resolved_head_dim)
+    for rank, r in enumerate(tr):
+        errs = [abs(a - b) / abs(b) for a, b in zip(r["losses"], w_losses)]
+        log(f"  rank {rank}: losses {r['losses']} (relative to world size "
+            f"1: {errs}; tolerances {TP_FIRST_LOSS_RTOL} first, "
+            f"{TP_LOSS_RTOL} later), step seconds {r['step_s']} ({tp_note}),"
+            f" peak {r['peak_bytes']} bytes ({r['peak_bytes'] / 2**30:.2f} "
+            f"GiB; phase 32's {p32['peaks'][rank] / 2**30:.2f} GiB), "
+            f"launches {r['launches']}, flash routes {r['routes']}, shapes "
+            f"{r['shapes']}")
+        require(errs[0] <= TP_FIRST_LOSS_RTOL and max(errs) <= TP_LOSS_RTOL,
+                f"rank {rank}'s losses {r['losses']} against {w_losses}")
+        require(r["launches"] == want, f"rank {rank}'s launches "
+                f"{r['launches']} != {want}")
+        require(r["routes"] == {"wgmma": want["flash_attention"],
+                                "cuda_cores": 0},
+                f"rank {rank}'s flash routes {r['routes']}")
+        require(r["shapes"] == {"flash": {str(local):
+                                          want["flash_attention"]}},
+                f"rank {rank}'s flash shapes {r['shapes']}, want {local}")
+    shape = InputShape(f"train_{TP_TRAIN_BATCH}x{SEQ}", SEQ, TP_TRAIN_BATCH,
+                       "train")
+    pred = D.lower_one("olmo-1b", shape, multi_pod=False,
+                       mesh_shape=f"1x{TP_RANKS}", fsdp=False, remat=False,
+                       overrides={"seq_shard": True}, device=device.type)
+    coll, plain = tr[0]["collectives"], p32["collectives"]
+    log(f"  the dry run of rank 0's step on 1x{TP_RANKS} under seq_shard "
+        f"(fake CUDA tensors, trace {pred['trace_s']} s): flops "
+        f"{pred['flops']!r}, collectives {pred['collectives']}, memory "
+        f"{pred['memory']}; measured on rank 0: flops {tr[0]['flops']!r}, "
+        f"collectives {coll}; phase 32's step without seq_shard: "
+        f"collectives {plain}")
+    require(pred["flops"] == tr[0]["flops"],
+            f"predicted flops {pred['flops']!r} != rank 0's "
+            f"{tr[0]['flops']!r}")
+    require(pred["collectives"] == coll, "the dry run's collectives "
+            f"{pred['collectives']} != rank 0's {coll}")
+    # each layer's two model-group all-reduces forward and two backward
+    # become as many reduce-scatter / all-gather pairs
+    pairs = 4 * olmo.n_layers
+    count = lambda c, op: c.get(op, {}).get("count", 0)  # noqa: E731
+    require(count(plain, "all-reduce") - count(coll, "all-reduce") >= pairs
+            and count(coll, "reduce-scatter")
+            - count(plain, "reduce-scatter") >= pairs
+            and count(coll, "all-gather") - count(plain, "all-gather")
+            >= pairs, f"seq_shard's collectives {coll} against {plain}: "
+            f"want {pairs} per-layer all-reduces as reduce-scatter / "
+            "all-gather pairs")
+    row32 = next(r for r in flash_rows
+                 if r["model"] == f"{olmo.arch_id} (1x{TP_RANKS} rank)")
+    row32["launches"] += sum(r["launches"]["flash_attention"] for r in tr)
+    check_seq_leaves(device, tp_note)
+
+    hyb, vis, aud = (cells[a][0] for a in TP_FAMILY_CELLS)
+    shapes = [(f"{c.arch_id} (1x{TP_RANKS} rank)",
+               (b, c.n_heads // TP_RANKS, s, c.resolved_head_dim),
+               c.sliding_window) for c, b, s in cells.values()]
+    hb, hs = TP_FAMILY_CELLS[hyb.arch_id]
+    ssd_shape = (hb, hs, hyb.ssm_nheads // TP_RANKS, hyb.ssm_headdim,
+                 hyb.ssm_state, min(hyb.ssm_chunk, hs))
+    log(f"  the local-head kernel shapes of phase 35 against their plain "
+        f"versions and timed (as in phase 6; {card})")
+    errs = check_flash_shapes(device, shapes, gen)
+    ssd_name = f"{hyb.arch_id} (1x{TP_RANKS} rank)"
+    ssd_err = check_ssd_shape(device, ssd_shape, gen, ssd_name)
+    for (name, shape, window), c in zip(shapes, (hyb, vis, aud)):
+        t = time_flash(device, shape, gen, window=window)
+        flash_rows.append(dict(
+            model=name, shape=list(shape), window=window,
+            launches=tp_launches[c.arch_id]["flash_attention"],
+            max_abs_err=errs[name], **t))
+        log(f"  flash_attention at {name}'s shape: {flash_rows[-1]}")
+    t, cc_ms = time_ssd(device, ssd_shape, gen)
+    ssd_rows.append(dict(model=ssd_name, shape=list(ssd_shape),
+                         launches=tp_launches[hyb.arch_id]["ssd_scan"],
+                         max_abs_err=ssd_err, cuda_cores_ms=cc_ms, **t))
+    log(f"  ssd_scan at {ssd_name}'s shape: {ssd_rows[-1]}")
 
 
 
@@ -2771,7 +3236,8 @@ def main() -> int:
             f"the steps' launches {p_launches}: prefill attends through its "
             "cache, so no kernel launches")
 
-    run_tp_phases(device, gen, card, flash_rows, ssd_rows)
+    p32 = run_tp_phases(device, gen, card, flash_rows, ssd_rows)
+    run_tp_family_phases(device, gen, card, flash_rows, ssd_rows, p32)
 
     kernels = [
         dict(name="aggregate_shards", route="cuda",

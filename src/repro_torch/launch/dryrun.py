@@ -45,9 +45,9 @@ symbolic position): the last slot of a full ``seq_len`` cache.
 On a mesh with a model axis ("32x8", "2x32x8", the reference's "16x16"
 and "2x16x16") rank 0 holds its model parts and runs its heads, experts
 and vocabulary columns (``distributed/tensor_parallel.py``); the
-recorder counts the model group's collectives with the data group's. The
-families not ported to a model axis > 1 (hybrid, vlm, audio: ROADMAP A16c)
-are reported as skipped, not as failures.
+recorder counts the model group's collectives with the data group's, and
+``--set seq_shard=True`` traces the training step's sequence-parallel
+form (its reduce-scatter / all-gather pairs).
 """
 from __future__ import annotations
 
@@ -322,18 +322,6 @@ def main(argv=None):
                                 mesh_shape=args.mesh_shape,
                                 overrides=overrides or None,
                                 device=args.device)
-            except NotImplementedError as e:
-                if "A16c" not in str(e):
-                    raise
-                print(f"SKIP {arch_id} x {shape_name} on {mesh_name}: {e}")
-                if args.out:
-                    os.makedirs(args.out, exist_ok=True)
-                    with open(os.path.join(args.out, tag + ".json"),
-                              "w") as f:
-                        json.dump({"arch": arch_id, "shape": shape_name,
-                                   "mesh": mesh_name, "skipped": str(e)},
-                                  f, indent=1)
-                continue
             except Exception as e:
                 traceback.print_exc()
                 failures.append((tag, repr(e)))

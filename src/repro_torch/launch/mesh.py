@@ -25,9 +25,9 @@ def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda"):
     """256 ranks as (data=256, model=1) ("256x1"); with ``multi_pod``, 512
     as (pod=2, data=256, model=1) ("2x256x1"): the reference's chip counts
-    (16x16 and 2x16x16), on H100 clusters with the ``model`` axis at 1, on
-    which every family runs (the hybrid, vlm and audio families take no
-    model axis yet, ROADMAP A16c). With a model axis of 1,
+    (16x16 and 2x16x16), on H100 clusters with the ``model`` axis at 1
+    (every family also takes a model axis > 1, through
+    ``make_custom_mesh``). With a model axis of 1,
     ``prefill_32k`` (batch 32), ``decode_32k`` (128) and ``long_500k`` (1)
     do not divide 256 data ranks, nor ``train_4k``'s 256 the 512 of
     "2x256x1", so ``batch_specs`` keeps those batches whole on every rank;

@@ -50,8 +50,23 @@ under ``fsdp``, its data part of that), and the model runs inside
 coordinate form the data group: the batch, the gradient sync, ZeRO-3 and
 the ``hier`` state work there as they do without a model axis. The
 prefill and serve steps hold their caches split as ``cache_specs`` says
-(``shard_cache``). The dense, MoE and SSM families take a model axis; the
-hybrid, vlm and audio families, and ``seq_shard``, raise (ROADMAP A16c).
+(``shard_cache``). Every family takes a model axis;
+``registry.check_model_axis`` raises only where a model cannot split
+(a rank without a head, SSM heads the axis does not divide).
+
+Under ``cfg.seq_shard`` the training step runs the model in
+``model_parallel``'s sequence-parallel mode: between the layers each model
+rank holds its slice of the sequence, which must divide by the model
+axis. A whole leaf that the model reads on a slice (the norms' scales and
+biases, the vlm gates, an unsplit MLP) or that only this rank's heads
+read on the gathered sequence (the SSM layers' B / C projections and
+conv) would then have a partial gradient on each model rank; the layer
+that reads it does so through ``tensor_parallel.seq_leaf``, whose
+backward sums it over the model group, so that every rank's copy takes
+the same update. Every other leaf keeps its whole gradient, as without
+the mode. The prefill and serve steps keep the stream whole on every
+rank: with a cache the reference skips ``seq_constraint`` in most
+families, and the constraint changes no number.
 """
 from __future__ import annotations
 
@@ -244,9 +259,10 @@ class _Step:
         each leaf, concatenated."""
         if self.n_model == 1:
             return cache
-        like = decode_cache_shapes(self.cfg, T.leaves(cache)[0].shape[1],
-                                   cache["k"].shape[2] if "k" in cache
-                                   else 1)
+        like = T.unflatten(cache, [
+            torch.empty(_whole_cache_shape(self.cfg, p, x.shape),
+                        device="meta")
+            for p, x in T.leaves_with_path(cache)])
         return T.unflatten(cache, [
             x if md is None else gather_model_part(x, md[0],
                                                    self.model_group)
@@ -319,11 +335,20 @@ class TrainStep(_Step):
             out.append(groups[0] if len(groups) == 1 else groups or None)
         return out
 
-    def __call__(self, params, opt_state: AdamWState, batch):
-        with tp.model_parallel(self.model_group), \
+    def loss_and_grads(self, params, batch):
+        """This rank's loss and the gradient of the parameters it holds,
+        before the data-parallel sync."""
+        cfg = self.cfg
+        registry.check_model_axis(cfg, self.n_model, [
+            x.shape[1] for k, x in batch.items()
+            if k in ("tokens", "audio_frames")])
+        with tp.model_parallel(self.model_group, seq=cfg.seq_shard), \
                 L.global_label_count(self.group, self.n_data):
-            loss, grads = T.value_and_grad(lambda p, b: registry.loss_fn(
-                self.model_params(p), self.cfg, b))(params, batch)
+            return T.value_and_grad(lambda p, b: registry.loss_fn(
+                self.model_params(p), cfg, b))(params, batch)
+
+    def __call__(self, params, opt_state: AdamWState, batch):
+        loss, grads = self.loss_and_grads(params, batch)
         gl = T.leaves(grads)
         for i, (z, s) in enumerate(zip(self.fsdp, self.shards)):
             if z is not None:       # summed into this part by the gathers
@@ -350,7 +375,8 @@ class PrefillStep(_Step):
     default, as in the reference). Under tensor parallelism the logits are
     this rank's columns of the vocabulary and the cache its model part
     (``gather_cache``, ``tensor_parallel.gather_from_model`` make them
-    whole)."""
+    whole); the stream stays whole on every rank under ``seq_shard`` too
+    (the module docstring)."""
 
     def __call__(self, params, batch, max_seq: Optional[int] = None):
         with torch.no_grad(), tp.model_parallel(self.model_group):
@@ -447,6 +473,21 @@ def make_serve_step(cfg: ModelConfig, mesh, *,
     """step(params, cache, pos, tokens) -> (logits, cache): ONE new token
     against a max_seq KV/SSM cache."""
     return ServeStep(**_base(cfg, mesh, fsdp))
+
+
+def _whole_cache_shape(cfg: ModelConfig, path: str, shape) -> tuple:
+    """The whole shape of a cache leaf at ``path`` of which a model rank
+    holds ``shape``: the keys' and values' heads and head dim, the SSM
+    state's heads, state and head dim, and the conv state's d_inner from
+    the config; the rest as it is."""
+    name, shape = path.rsplit("/", 1)[-1], tuple(shape)
+    if name in ("k", "v"):
+        return shape[:-2] + (cfg.n_kv_heads, cfg.resolved_head_dim)
+    if name == "ssm":
+        return shape[:-3] + (cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_headdim)
+    if name == "conv_x":
+        return shape[:-1] + (cfg.d_inner,)
+    return shape
 
 
 def decode_cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,

@@ -11,6 +11,13 @@ the encoder's output, whose keys and values are computed once per layer
 Only the decoder's causal self-attention without a cache reaches the flash
 kernel (``layers.apply_attention``'s gate); the encoder and the
 cross-attention run ``blockwise_attention`` with ``causal=False``.
+
+Under tensor parallelism ``audio_proj`` is whole on every rank, the
+encoder's and the decoder's self-attention run this rank's heads
+(``layers.apply_attention``), and the cross K/V is this rank's part
+(``transformer.stacked_kv``), which ``layers.cross_attention`` attends.
+Under sequence parallelism the encoder runs on this rank's slice of the
+frames and hands back the whole output.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.base import ModelConfig
@@ -55,7 +63,7 @@ def init(normal, cfg: ModelConfig, device):
 
 def encode(params, cfg: ModelConfig, audio_frames):
     """audio_frames: (b, f, d_audio), cast to cfg.dtype -> (b, f, d_model)."""
-    h = audio_frames.to(cfg.dtype) @ params["audio_proj"]
+    h = tp.seq_slice(audio_frames.to(cfg.dtype) @ params["audio_proj"])
 
     def body(h, bp, _):
         a, _ = L.apply_attention(bp["attn"], cfg,
@@ -66,7 +74,7 @@ def encode(params, cfg: ModelConfig, audio_frames):
 
     h, _ = T.run_layers(h, params["encoder"], None, cfg.n_encoder_layers,
                         T.remat_wrap(cfg, body))
-    return L.apply_norm(params["enc_norm"], cfg, h)
+    return tp.seq_gather(L.apply_norm(params["enc_norm"], cfg, h))
 
 
 def cross_kv(params, cfg: ModelConfig, enc_out):
@@ -92,7 +100,7 @@ def decode_stack(params, cfg: ModelConfig, tokens, ckv, *, positions=None,
     """The decoder over ``tokens`` against the stacked cross K/V ``ckv``;
     ``cache`` (if given) is the self-attention cache stacked on the layer
     axis. Returns (logits, the new self cache or None)."""
-    h = L.embed_tokens(params["embed"], tokens)
+    h = L.embed_tokens(params["embed"], tokens, cfg)
     body = T.remat_wrap(cfg, lambda h, x, c: apply_dec_block(
         x["block"], cfg, h, x["kv"], positions=positions, cache=c,
         cache_index=cache_index))

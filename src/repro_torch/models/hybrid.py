@@ -11,6 +11,11 @@ Without a cache the SSM layers take the SSD kernel under
 ``cfg.use_ssd_kernel`` and the shared block's attention the flash kernel
 under ``cfg.use_flash_kernel`` (with the window), as in the SSM and dense
 families.
+
+Under tensor parallelism the Mamba2 layers take their heads' parts as in
+the SSM family and the shared block is a dense block; each site's ring
+holds this rank's part of the keys and values (``layers.kv_layout``: its
+kv heads, else its dims of every head), over which decode attends.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
@@ -55,33 +61,59 @@ def shared_attn_decode(bp, cfg: ModelConfig, h, attn_cache, pos: int):
     """One-token attention against a ring-buffer window cache. Returns
     (h, the cache with this token's keys and values in slot pos mod
     size)."""
-    b = h.shape[0]
+    x = L.apply_norm(bp["ln1"], cfg, h)
+    o, ring = _ring_attend(bp["attn"], cfg, x, attn_cache, pos)
+    h = h + o
+    h = h + L.apply_mlp(bp["mlp"], cfg, L.apply_norm(bp["ln2"], cfg, h))
+    return h, ring
+
+
+def _ring_attend(attn, cfg: ModelConfig, x, attn_cache, pos: int):
+    """One token's attention over the ring's valid slots (not a causal
+    mask), its keys and values written into slot pos mod size. Under
+    tensor parallelism on this model rank's part of the ring
+    (``layers.kv_layout``): its q heads against its kv heads (every kv
+    head on a whole ring) and the output projection's rows of those
+    heads; on a head-dim ring, every head's q on this rank's dims, the
+    scores summed over the model group and the rows of those dims. Summed
+    over the model group."""
+    b = x.shape[0]
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    lo, hi = L.head_bounds(nq)
+    layout = L.kv_layout(cfg)
     size = attn_cache["k"].shape[1]
-    x = L.apply_norm(bp["ln1"], cfg, h)
-    q = (x @ bp["attn"]["wq"]).reshape(b, 1, nq, hd)
-    k = (x @ bp["attn"]["wk"]).reshape(b, 1, nkv, hd)
-    v = (x @ bp["attn"]["wv"]).reshape(b, 1, nkv, hd)
+    xc = tp.copy_to_model(x)
     positions = torch.full((1,), int(pos), dtype=torch.int64,
-                           device=h.device)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+                           device=x.device)
     slot = int(pos) % size
     ck = attn_cache["k"].clone()
     cv = attn_cache["v"].clone()
-    ck[:, slot:slot + 1] = k.to(ck.dtype)
-    cv[:, slot:slot + 1] = v.to(cv.dtype)
-    kk = L._repeat_kv(ck, nq // nkv).float()
-    vv = L._repeat_kv(cv, nq // nkv).float()
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * hd ** -0.5, kk)
-    valid = torch.arange(size, device=h.device) < min(int(pos) + 1, size)
-    s = torch.where(valid, s, L.NEG_INF)
-    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vv)
-    o = o.to(h.dtype).reshape(b, 1, nq * hd) @ bp["attn"]["wo"]
-    h = h + o
-    h = h + L.apply_mlp(bp["mlp"], cfg, L.apply_norm(bp["ln2"], cfg, h))
-    return h, {"k": ck, "v": cv}
+    ck[:, slot:slot + 1] = L.kv_part(xc, attn["wk"], cfg, positions).to(
+        ck.dtype)
+    cv[:, slot:slot + 1] = L.kv_part(xc, attn["wv"], cfg).to(cv.dtype)
+    valid = torch.arange(size, device=x.device) < min(int(pos) + 1, size)
+    if layout == "hd":
+        q = (xc @ tp.used_part(attn["wq"], -1, nq * hd, 0, nq * hd)) \
+            .reshape(b, 1, nq, hd)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        d_lo, d_hi = tp.bounds(hd)
+        o = L.attend_dims(q[..., d_lo:d_hi], ck, cv, hd, valid)
+        wo = L.head_dims(tp.used_part(attn["wo"], -2, nq * hd, 0, nq * hd),
+                         -2, nq, hd)
+    else:
+        q = (xc @ tp.used_part(attn["wq"], -1, nq * hd, lo * hd, hi * hd)) \
+            .reshape(b, 1, hi - lo, hd)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        n_rep, base = nq // nkv, tp.bounds(nkv)[0] if layout == "kv" else 0
+        kk = L.kv_for_heads(ck, lo, hi, n_rep, base).float()
+        vv = L.kv_for_heads(cv, lo, hi, n_rep, base).float()
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float() * hd ** -0.5, kk)
+        s = torch.where(valid, s, L.NEG_INF)
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vv)
+        wo = tp.used_part(attn["wo"], -2, nq * hd, lo * hd, hi * hd)
+    o = o.to(x.dtype).reshape(b, 1, -1) @ wo
+    return tp.reduce_from_model(o), {"k": ck, "v": cv}
 
 
 def _stacked(c: dict, n: int) -> dict:
@@ -101,24 +133,26 @@ def _shared_block(params, cfg: ModelConfig, h, ring: int):
     """The shared attention + MLP block over a whole sequence. With
     ``ring`` > 0 also the ring cache of that size its decode continues
     from: the last min(ring, s) keys and values, position t in slot
-    t mod ring."""
+    t mod ring (under tensor parallelism this rank's part of them,
+    ``layers.kv_part``)."""
     sp = params["shared"]
-    b, s, _ = h.shape
     x_in = L.apply_norm(sp["ln1"], cfg, h)
     a, _ = L.apply_attention(sp["attn"], cfg, x_in)
     h = h + a
     h = h + L.apply_mlp(sp["mlp"], cfg, L.apply_norm(sp["ln2"], cfg, h))
     if not ring:
         return h, None
-    hd, nkv = cfg.resolved_head_dim, cfg.n_kv_heads
-    k = (x_in @ sp["attn"]["wk"]).reshape(b, s, nkv, hd)
-    v = (x_in @ sp["attn"]["wv"]).reshape(b, s, nkv, hd)
-    k = L.apply_rope(k, torch.arange(s, device=h.device), cfg.rope_theta)
+    b, s, _ = h.shape
+    xc = tp.copy_to_model(x_in)
+    k = L.kv_part(xc, sp["attn"]["wk"], cfg,
+                  torch.arange(s, device=h.device))
+    v = L.kv_part(xc, sp["attn"]["wv"], cfg)
     take = min(ring, s)
     slots = torch.arange(s - take, s, device=h.device) % ring
     kv = {}
     for name, t in (("k", k), ("v", v)):
-        c = torch.zeros(b, ring, nkv, hd, dtype=cfg.dtype, device=h.device)
+        c = torch.zeros((b, ring) + t.shape[2:], dtype=cfg.dtype,
+                        device=h.device)
         c[:, slots] = t[:, -take:].to(cfg.dtype)
         kv[name] = c
     return h, kv
@@ -132,7 +166,7 @@ def forward_full(params, cfg: ModelConfig, tokens, *, mamba_cache=None,
     ring caches stacked on the group axis or None). With
     ``collect_attn_kv`` > 0 each site's ring cache of that size is built
     for the decode that follows."""
-    h = L.embed_tokens(params["embed"], tokens)
+    h = L.embed_tokens(params["embed"], tokens, cfg)
     bps = T.unbind_layers(params["blocks"], cfg.n_layers)
     caches = (T.unbind_layers(mamba_cache, cfg.n_layers)
               if mamba_cache is not None else [None] * cfg.n_layers)
@@ -185,7 +219,7 @@ def prefill(params, cfg: ModelConfig, tokens, max_seq: Optional[int] = None):
 
 def decode_step(params, cfg: ModelConfig, cache, pos: int, tokens):
     """tokens: (b, 1); pos: the absolute position of this token."""
-    h = L.embed_tokens(params["embed"], tokens)
+    h = L.embed_tokens(params["embed"], tokens, cfg)
     bps = T.unbind_layers(params["blocks"], cfg.n_layers)
     caches = T.unbind_layers(cache["mamba"], cfg.n_layers)
     rings = T.unbind_layers(cache["attn"], n_groups(cfg)[0])

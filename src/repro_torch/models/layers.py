@@ -18,8 +18,19 @@ flattened head columns whenever they divide: qwen2.5-3b's two KV heads on
 the model group and takes the heads it needs; the alternative, contracting
 the split head dim with an all-reduce of partial scores, would cut
 attention's work by rank only for the q-k product and would need the
-rotary embedding's pairs (i, i + d/2) on one rank. The decode cache's
-fallback to the head dim is the one place that contraction is made.
+rotary embedding's pairs (i, i + d/2) on one rank. The caches' fallback
+to the head dim (``kv_layout``) is the one place that contraction is
+made: the decode of a split cache (the hybrid's ring too), and the
+cross-attention of a few queries over a split cross K/V (reduced
+llama-vision's one KV head, llama-vision's eight on 16 ranks); a longer
+sequence gathers the cross K/V's dims and runs this rank's heads.
+
+Under sequence parallelism (``cfg.seq_shard``: ``tensor_parallel``'s
+mode) the stream between the layers is this rank's slice of the
+sequence: norms run on it, attention and the MLP gather it on entry
+(``tp.enter``) and reduce-scatter their partial outputs on exit
+(``tp.leave``), the embedding hands back a slice and the unembedding
+gathers it.
 """
 from __future__ import annotations
 
@@ -69,15 +80,18 @@ def init_norm(cfg: ModelConfig, device):
 
 
 def apply_norm(params, cfg: ModelConfig, x, eps: float = 1e-5):
+    """The norm of the stream ``x`` (under sequence parallelism its slice,
+    so the scale and bias are read through ``tp.seq_leaf``)."""
     xf = x.float()
     if cfg.norm == "rmsnorm":
         y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-        return (y * params["scale"].float()).to(x.dtype)
+        return (y * tp.seq_leaf(params["scale"]).float()).to(x.dtype)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
     if cfg.norm == "layernorm":
-        y = y * params["scale"].float() + params["bias"].float()
+        y = y * tp.seq_leaf(params["scale"]).float() \
+            + tp.seq_leaf(params["bias"]).float()
     return y.to(x.dtype)
 
 
@@ -249,7 +263,7 @@ def _attend(cfg: ModelConfig, q, k, v, *, causal: bool, q_offset: int,
                                sliding_window=cfg.sliding_window)
 
 
-def _kv_for_heads(k, lo: int, hi: int, n_rep: int, base: int):
+def kv_for_heads(k, lo: int, hi: int, n_rep: int, base: int):
     """k or v (b, s, kv, d) holding kv heads [base, ...) -> one per q head
     of [lo, hi) (q head j reads kv head j // n_rep)."""
     if n_rep == 1 and lo == base and k.shape[2] == hi - lo:
@@ -287,21 +301,15 @@ def _attention_tp(params, cfg: ModelConfig, x, *, positions, causal: bool,
     over the new keys, and a later step contracts q . k over the split
     dims with an all-reduce of the partial scores and all-gathers the
     output's dims."""
-    b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     n_rep = nq // nkv
-    lo, hi = tp.bounds(nq)
-    if hi == lo:
-        raise NotImplementedError(
-            f"{nq} heads on a model axis of {tp.size()}: a rank without a "
-            "head")
+    lo, hi = head_bounds(nq)
     klo, khi = lo // n_rep, (hi - 1) // n_rep + 1
-    layout = None if cache is None else (
-        "hd" if cache["k"].shape[-1] != hd else
-        "kv" if cache["k"].shape[-2] != nkv else "whole")
+    layout = None if cache is None else kv_layout(cfg)
     ka, kz = (0, nkv) if layout in ("hd", "whole") else (klo, khi)
-    xc = tp.copy_to_model(x)
+    xc = tp.enter(x)
+    b, s, _ = xc.shape
 
     def proj(w, bias, n, a, z):
         y = xc @ tp.used_part(params[w], -1, n * hd, a * hd, z * hd)
@@ -334,12 +342,51 @@ def _attention_tp(params, cfg: ModelConfig, x, *, positions, causal: bool,
         elif layout != "hd":
             k, v, q_offset = ck, cv, idx
     if out is None:
-        out = _attend(cfg, q, _kv_for_heads(k, lo, hi, n_rep, ka),
-                      _kv_for_heads(v, lo, hi, n_rep, ka), causal=causal,
+        out = _attend(cfg, q, kv_for_heads(k, lo, hi, n_rep, ka),
+                      kv_for_heads(v, lo, hi, n_rep, ka), causal=causal,
                       q_offset=q_offset, flash=cache is None)
     out = out.reshape(b, s, (hi - lo) * hd) @ tp.used_part(
         params["wo"], -2, nq * hd, lo * hd, hi * hd)
-    return tp.reduce_from_model(out), new_cache
+    return tp.leave(out), new_cache
+
+
+def head_bounds(n: int):
+    """This rank's heads [lo, hi) of ``n``; a rank without one raises."""
+    lo, hi = tp.bounds(n)
+    if hi == lo:
+        raise NotImplementedError(
+            f"{n} heads on a model axis of {tp.size()}: a rank without a "
+            "head")
+    return lo, hi
+
+
+def attend_dims(q, k, v, hd: int, mask=None):
+    """Attention of q (b, sq, nq, dd) over k, v (b, skv, nkv, dd), each
+    this rank's dims of heads of ``hd``: the partial scores summed over
+    the model group (forward and backward), ``mask`` (sq, skv) or (skv,)
+    keeping where true. -> this rank's dims of every head's output, f32."""
+    n_rep = q.shape[2] // k.shape[2]
+    kf = _repeat_kv(k, n_rep).float()
+    vf = _repeat_kv(v, n_rep).float()
+    s = tp.sum_over_model(torch.einsum("bqhd,bkhd->bhqk",
+                                       q.float() * hd ** -0.5, kf))
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    p = p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf)
+
+
+def head_dims(w, dim: int, n: int, hd: int):
+    """The columns (``dim`` -1) or rows (-2) of a whole (.., n * hd, ..)
+    projection that hold this rank's dims ``tp.bounds(hd)`` of each of
+    its n heads: (.., n * dd, ..)."""
+    d_lo, d_hi = tp.bounds(hd)
+    if dim == -1:
+        return w.reshape(w.shape[0], n, hd)[..., d_lo:d_hi].reshape(
+            w.shape[0], -1)
+    return w.reshape(n, hd, w.shape[-1])[:, d_lo:d_hi].reshape(
+        -1, w.shape[-1])
 
 
 def _attend_split_dims(cfg: ModelConfig, q, ck, cv, q_offset: int):
@@ -347,36 +394,96 @@ def _attend_split_dims(cfg: ModelConfig, q, ck, cv, q_offset: int):
     whose head dims are split over the model group (b, S, kv, d / m): the
     partial scores over this rank's dims are summed over the group, the
     output's dims gathered. -> (b, s, nq, d), the same on every rank."""
-    b, sq, nq, hd = q.shape
+    sq, hd = q.shape[1], q.shape[-1]
     d_lo, d_hi = tp.bounds(hd)
-    n_rep = nq // ck.shape[2]
-    qf = q[..., d_lo:d_hi].float() * hd ** -0.5
-    kf = _repeat_kv(ck, n_rep).float()
-    vf = _repeat_kv(cv, n_rep).float()
-    scores = tp.reduce_from_model(torch.einsum("bqhd,bkhd->bhqk", qf, kf))
     q_pos = q_offset + torch.arange(sq, device=q.device)
-    kv_pos = torch.arange(kf.shape[1], device=q.device)
+    kv_pos = torch.arange(ck.shape[1], device=q.device)
     mask = q_pos[:, None] >= kv_pos[None, :]
     if cfg.sliding_window:
         mask &= q_pos[:, None] - kv_pos[None, :] < cfg.sliding_window
-    scores = torch.where(mask, scores, NEG_INF)
-    p = torch.exp(scores - torch.amax(scores, dim=-1, keepdim=True))
-    p = p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    out = attend_dims(q[..., d_lo:d_hi], ck, cv, hd, mask)
     return tp.gather_from_model(out, -1).to(q.dtype)
 
 
 def cross_attention(attn, cfg: ModelConfig, x, kv):
     """x's queries against precomputed keys and values ``kv`` ({"k", "v"},
     (b, m, kv, hd)): no rope, no mask, never the flash kernel (it is
-    causal only). Returns the output projection, (b, s, d_model)."""
-    b, s, _ = x.shape
+    causal only). Returns the output projection, (b, s, d_model).
+
+    Under tensor parallelism ``kv`` is this rank's part (``kv_layout``):
+    its q heads [lo, hi) attend its kv heads (every kv head where the part
+    is whole) and take the output projection's rows of those heads,
+    summed over the model group. Where the part is this rank's dims of
+    every head, a few queries a row (decode: fewer q heads x queries than
+    kv dims, ``_contract_dims``) contract over those dims with the scores
+    summed over the group (``attend_dims``); more queries gather the
+    dims instead and run this rank's heads, so that the scores of every
+    head never stand on one rank."""
     hd = cfg.resolved_head_dim
-    q = (x @ attn["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = _repeat_kv(kv["k"], cfg.n_heads // cfg.n_kv_heads)
-    v = _repeat_kv(kv["v"], cfg.n_heads // cfg.n_kv_heads)
-    o = blockwise_attention(q, k, v, causal=False)
-    return o.reshape(b, s, cfg.n_heads * hd) @ attn["wo"]
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    xc = tp.enter(x)
+    b, s, _ = xc.shape
+    layout = kv_layout(cfg)
+    if layout == "hd" and _contract_dims(cfg, s):
+        wq = head_dims(tp.used_part(attn["wq"], -1, nq * hd, 0, nq * hd),
+                       -1, nq, hd)
+        q = (xc @ wq).reshape(b, s, nq, -1)
+        o = attend_dims(q, kv["k"], kv["v"], hd).to(x.dtype)
+        wo = head_dims(tp.used_part(attn["wo"], -2, nq * hd, 0, nq * hd),
+                       -2, nq, hd)
+        return tp.leave(o.reshape(b, s, -1) @ wo)
+    if layout == "hd":
+        kv = {n: tp.copy_to_model(tp.gather_from_model(t, -1))
+              for n, t in kv.items()}
+    lo, hi = head_bounds(nq)
+    n_rep = nq // nkv
+    base = tp.bounds(nkv)[0] if layout == "kv" else 0
+    q = (xc @ tp.used_part(attn["wq"], -1, nq * hd, lo * hd, hi * hd)) \
+        .reshape(b, s, hi - lo, hd)
+    o = blockwise_attention(q, kv_for_heads(kv["k"], lo, hi, n_rep, base),
+                            kv_for_heads(kv["v"], lo, hi, n_rep, base),
+                            causal=False)
+    return tp.leave(o.reshape(b, s, (hi - lo) * hd) @ tp.used_part(
+        attn["wo"], -2, nq * hd, lo * hd, hi * hd))
+
+
+def _contract_dims(cfg: ModelConfig, s: int) -> bool:
+    """Whether ``s`` queries a row contract a head-dim-split K/V over its
+    dims (the partial scores, s x n_heads a key, cross the model group)
+    rather than gather its dims (n_kv_heads x head_dim a key)."""
+    return s * cfg.n_heads < cfg.n_kv_heads * cfg.resolved_head_dim
+
+
+def kv_layout(cfg: ModelConfig) -> str:
+    """What a rank holds of a cache's keys and values (and of the cross
+    K/V), as ``cache_specs`` splits them: "kv" its kv heads where they
+    divide the model axis, else "hd" its part of every head's dims where
+    those divide, else "whole"."""
+    m = tp.size()
+    if m == 1:
+        return "whole"
+    if cfg.n_kv_heads % m == 0:
+        return "kv"
+    return "hd" if cfg.resolved_head_dim % m == 0 else "whole"
+
+
+def kv_part(x, w, cfg: ModelConfig, positions=None):
+    """Keys or values ``x @ w`` (b, s, kv, hd), rotated to ``positions``
+    when given; under tensor parallelism ``x`` has entered the split
+    (``tp.copy_to_model``) and the result is this rank's part of them
+    (``kv_layout``), from what it holds of ``w``."""
+    b, s, _ = x.shape
+    hd, nkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    layout = kv_layout(cfg)
+    a, z = tp.bounds(nkv) if layout == "kv" else (0, nkv)
+    y = (x @ tp.used_part(w, -1, nkv * hd, a * hd, z * hd)).reshape(
+        b, s, z - a, hd)
+    if positions is not None:
+        y = apply_rope(y, positions, cfg.rope_theta)
+    if layout == "hd":
+        d_lo, d_hi = tp.bounds(hd)
+        y = y[..., d_lo:d_hi]
+    return y
 
 
 def cross_query(attn):
@@ -392,9 +499,10 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
     cache: the kv heads where they divide the model axis, else the head
     dim where it divides, else the whole."""
     kv, hd, m = cfg.n_kv_heads, cfg.resolved_head_dim, tp.size()
-    if kv % m == 0:
+    layout = kv_layout(cfg)
+    if layout == "kv":
         kv //= m
-    elif hd % m == 0:
+    elif layout == "hd":
         hd //= m
     shape = (batch, max_seq, kv, hd)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -419,10 +527,12 @@ def init_mlp(normal, cfg: ModelConfig, d_ff: Optional[int] = None):
 def apply_mlp(params, cfg: ModelConfig, x, d_ff: Optional[int] = None):
     """The MLP of hidden width ``d_ff`` (default ``cfg.d_ff``); under
     tensor parallelism, on this rank's columns of it where the leaves are
-    split (column- then row-parallel), summed over the model group."""
+    split (column- then row-parallel), summed over the model group. Whole
+    leaves run on the stream as it is (under sequence parallelism its
+    slice, the leaves read through ``tp.seq_leaf``)."""
     if tp.size() > 1 and params["wi"].shape[-1] != (d_ff or cfg.d_ff):
-        return tp.reduce_from_model(_mlp(params, tp.copy_to_model(x)))
-    return _mlp(params, x)
+        return tp.leave(_mlp(params, tp.enter(x)))
+    return _mlp({k: tp.seq_leaf(w) for k, w in params.items()}, x)
 
 
 def _mlp(params, x):
@@ -449,7 +559,9 @@ def embed_tokens(params, x, cfg: Optional[ModelConfig] = None):
     """Rows of ``tok`` for the ids ``x``. Under tensor parallelism (``cfg``
     then gives the full widths) from this rank's rows of the vocabulary,
     the ids outside them masked and the lookups summed over the model
-    group; or from its columns of d (the specs' fallback), gathered."""
+    group; or from its columns of d (the specs' fallback), gathered. Under
+    sequence parallelism the result is this rank's slice of the
+    sequence."""
     tok = params["tok"]
     if tp.size() == 1:
         return tok[x.long()]
@@ -460,24 +572,25 @@ def embed_tokens(params, x, cfg: Optional[ModelConfig] = None):
         inside = (ids >= 0) & (ids < tok.shape[0])
         h = tok[torch.where(inside, ids, 0)].masked_fill(~inside[..., None],
                                                         0)
-        return tp.reduce_from_model(h)
+        return tp.leave(h)
     if tok.shape[1] != cfg.d_model:
-        return tp.gather_from_model(tok[x.long()], -1)
-    return tok[x.long()]
+        return tp.seq_slice(tp.gather_from_model(tok[x.long()], -1))
+    return tp.seq_slice(tok[x.long()])
 
 
 def unembed(params, cfg: ModelConfig, h):
     """Logits (b, s, V); under tensor parallelism, this rank's columns of
     the vocabulary where ``unembed`` (or a tied ``tok``) is split over it
-    (``cross_entropy`` takes them as they are)."""
+    (``cross_entropy`` takes them as they are). Under sequence
+    parallelism ``h`` is this rank's slice, gathered here."""
     w = params["tok"].T if cfg.tie_embeddings else params["unembed"]
     if tp.size() == 1 or w.shape == (cfg.d_model, cfg.vocab_padded):
-        return h @ w
+        return tp.seq_gather(h) @ w
     if w.shape[1] != cfg.vocab_padded:
-        return tp.copy_to_model(h) @ w
+        return tp.enter(h) @ w
     lo = tp.rank() * w.shape[0]          # a tied tok split on d
     return tp.reduce_from_model(
-        tp.copy_to_model(h)[..., lo:lo + w.shape[0]] @ w)
+        tp.copy_to_model(tp.seq_gather(h))[..., lo:lo + w.shape[0]] @ w)
 
 
 # (group, n) inside ``global_label_count``

@@ -152,12 +152,18 @@ def _split(bp, cfg: ModelConfig) -> bool:
 
 def _in_proj(bp, cfg: ModelConfig, h, split: bool = False):
     """The input projections. Under tensor parallelism (``split``) z, x
-    and dt are this rank's heads' columns, and B, C whole."""
-    hin = L.rmsnorm_raw(h, bp["ln"]["scale"])
-    hc = tp.copy_to_model(hin) if split else hin
+    and dt are this rank's heads' columns, and B, C whole. Under sequence
+    parallelism ``h`` is this rank's slice: the norm runs on it, and the
+    projections (B and C too, which only this rank's heads then read, so
+    their gradient is a partial sum: ``tp.seq_leaf`` reads them, the norm's
+    scale and ``conv_BC``) on the gathered sequence."""
+    hin = L.rmsnorm_raw(h, tp.seq_leaf(bp["ln"]["scale"]))
+    hc = tp.enter(hin) if split else hin
     z = hc @ bp["wz"]
     x = hc @ bp["wx"]
-    BC = torch.cat([hin @ bp["wB"], hin @ bp["wC"]], dim=-1)
+    hbc = hc if tp.seq_parallel() else hin
+    BC = torch.cat([hbc @ tp.seq_leaf(bp["wB"]),
+                    hbc @ tp.seq_leaf(bp["wC"])], dim=-1)
     dt = F.softplus((hc @ bp["wdt"]).float() + bp["dt_bias"].float())
     A = -torch.exp(bp["A_log"].float())
     return z, x, BC, dt, A
@@ -177,21 +183,21 @@ def _gated_norm(y, z, scale, cfg: ModelConfig, split: bool):
 
 def _out_proj(bp, y, split: bool):
     out = y @ bp["wo"]
-    return tp.reduce_from_model(out) if split else out
+    return tp.leave(out) if split else out
 
 
 def apply_mamba_block(bp, cfg: ModelConfig, h, cache=None):
     """cache: {"conv_x", "conv_BC", "ssm"} or None. Returns (out, new_cache)."""
-    b, s, d = h.shape
     split = _split(bp, cfg)
     nh, p, n = bp["A_log"].shape[-1], cfg.ssm_headdim, cfg.ssm_state
     z, x, BC, dt, A = _in_proj(bp, cfg, h, split)
+    b, s, _ = x.shape
     cx = cache["conv_x"] if cache is not None else None
     cbc = cache["conv_BC"] if cache is not None else None
     x, new_cx = causal_conv(x, bp["conv_x"], cx)
-    BC, new_cbc = causal_conv(BC, bp["conv_BC"], cbc)
-    if split:      # whole B, C read by this rank's heads only
-        BC = tp.copy_to_model(BC)
+    BC, new_cbc = causal_conv(BC, tp.seq_leaf(bp["conv_BC"]), cbc)
+    if split and not tp.seq_parallel():  # whole B, C read by this rank's
+        BC = tp.copy_to_model(BC)        # heads only
     B, C = torch.split(BC, n, dim=-1)
 
     x = x.reshape(b, s, nh, p)

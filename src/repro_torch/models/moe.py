@@ -149,7 +149,19 @@ def _moe_group_onehot(p, cfg: ModelConfig, xt):
 def apply_moe_ffn(p, cfg: ModelConfig, x):
     """x: (b, s, d) -> (out, aux_loss). Tokens are dispatched in groups of
     ``cfg.moe_group`` (all t tokens at once when that does not divide t,
-    as in decode); aux is the mean over groups."""
+    as in decode); aux is the mean over groups.
+
+    Under sequence parallelism ``x`` is this rank's slice: the FFN
+    gathers the sequence (routing and the groups are the whole batch's),
+    runs as without the mode, and hands back its slice of the output. The
+    routing, aux loss included, is then computed alike on every rank, so
+    the gathered stream keeps whole gradients (a partial one would need
+    the aux loss's gradient divided among the ranks)."""
+    if tp.seq_parallel():
+        xs = tp.seq_gather(x)
+        with tp.whole_sequence():
+            out, aux = apply_moe_ffn(p, cfg, xs)
+        return tp.seq_slice(out), aux
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)

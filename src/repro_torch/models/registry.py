@@ -7,8 +7,10 @@ package's ``models/registry.py``).
     decode_step(params, cfg, cache, pos, tokens) -> (logits, cache)
     init_decode_cache(params, cfg, batch, max_seq, batch_extras) -> a cache
 
-plus ``param_count`` (on the meta device: nothing is allocated) and the
-weight bridge to the reference, ``params_from_numpy``/``params_to_numpy``.
+plus ``param_count`` (on the meta device: nothing is allocated), the
+weight bridge to the reference, ``params_from_numpy``/``params_to_numpy``,
+and ``check_model_axis``: what stops a model from splitting over a model
+axis (every family takes one).
 ``batch`` is a dict: always {"tokens", "labels"}; plus "image_embeds" for
 vlm and "audio_frames" for the audio enc-dec.
 """
@@ -35,19 +37,33 @@ def family_module(cfg: ModelConfig):
 
 
 # the families whose layers take their model parts (tensor parallelism)
-MODEL_AXIS_FAMILIES = ("dense", "moe", "ssm")
+MODEL_AXIS_FAMILIES = tuple(_FAMILIES)
 
 
-def check_model_axis(cfg: ModelConfig, model_size: int) -> None:
+def check_model_axis(cfg: ModelConfig, model_size: int,
+                     seq_lens=()) -> None:
     """Raise where ``cfg`` cannot run on a model axis of ``model_size``:
-    the hybrid, vlm and audio families, and ``seq_shard``, are not ported
-    to one > 1 yet."""
-    if model_size > 1 and (cfg.family not in MODEL_AXIS_FAMILIES
-                           or cfg.seq_shard):
-        what = "seq_shard" if cfg.seq_shard else f"the {cfg.family} family"
+    fewer attention heads than ranks (a rank without a head), SSM heads
+    that do not divide it (the specs would split d_inner inside a head),
+    and, under ``seq_shard``, a sequence of ``seq_lens`` (the tokens', the
+    audio frames') that does not divide it: the reference's GSPMD pads
+    such a sequence, the port does not."""
+    if model_size == 1:
+        return
+    if cfg.n_heads and cfg.n_heads < model_size:
         raise NotImplementedError(
-            f"{cfg.arch_id}: {what} on a model axis > 1 (tensor "
-            "parallelism) is not ported yet (ROADMAP A16c)")
+            f"{cfg.arch_id}: {cfg.n_heads} heads on a model axis of "
+            f"{model_size}: a rank without a head")
+    if cfg.ssm_state and cfg.ssm_nheads % model_size:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: {cfg.ssm_nheads} SSM heads on a model axis of "
+            f"{model_size}: the specs split d_inner inside a head")
+    for n in seq_lens if cfg.seq_shard else ():
+        if n % model_size:
+            raise NotImplementedError(
+                f"{cfg.arch_id}: a sequence of {n} under seq_shard on a "
+                f"model axis of {model_size} (the reference pads it; the "
+                "port takes a sequence the axis divides)")
 
 
 def init(seed: int, cfg: ModelConfig, device="cuda"):

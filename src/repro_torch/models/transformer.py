@@ -15,6 +15,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import tree as T
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
 
@@ -140,16 +141,18 @@ def run_layers(h, blocks, cache, n: int, apply):
 
 
 def stacked_kv(attn, cfg: ModelConfig, memory, n: int):
-    """Cross-attention keys and values of ``memory`` (b, m, d_model) for
-    each of the n layers of a stacked attention's wk / wv, each layer's
-    weights taken through ``gather_layer``: {"k", "v"}, each (n, b, m, kv,
-    hd). Computed once; decode reads them from its cache."""
-    b, m, _ = memory.shape
-    shape = (b, m, cfg.n_kv_heads, cfg.resolved_head_dim)
+    """Cross-attention keys and values of ``memory`` (b, m, d_model, whole
+    on every rank) for each of the n layers of a stacked attention's wk /
+    wv, each layer's weights taken through ``gather_layer``: {"k", "v"},
+    each (n, b, m, kv, hd). Computed once; decode reads them from its
+    cache. Under tensor parallelism each is this rank's part, as
+    ``cache_specs`` splits ``image_kv/k`` and ``cross_kv/k``
+    (``layers.kv_layout``: its kv heads, else its dims of every head,
+    else whole)."""
+    mem = tp.copy_to_model(memory)
     ws = [gather_layer(w) for w in
           unbind_layers({"k": attn["wk"], "v": attn["wv"]}, n)]
-    return {name: torch.stack([(memory @ w[name]).reshape(shape)
-                               for w in ws])
+    return {name: torch.stack([L.kv_part(mem, w[name], cfg) for w in ws])
             for name in ("k", "v")}
 
 

@@ -11,6 +11,11 @@ in the reference, and taken per group.
 
 The self layers' causal attention without a cache reaches the flash kernel
 under ``cfg.use_flash_kernel``; the cross layers never do.
+
+Under tensor parallelism ``vision_proj`` and the gates are whole on every
+rank, the self layers run as in the dense family, and the image K/V is
+this rank's part (``transformer.stacked_kv``), which
+``layers.cross_attention`` attends.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.base import ModelConfig
@@ -45,9 +51,9 @@ def apply_cross_block(bp, cfg: ModelConfig, h, image_kv):
     """image_kv: {"k": (b, n_img, kv, hd), "v": ...} precomputed."""
     o = L.cross_attention(bp["attn"], cfg, L.apply_norm(bp["ln1"], cfg, h),
                           image_kv)
-    h = h + torch.tanh(bp["gate_attn"]) * o
+    h = h + torch.tanh(tp.seq_leaf(bp["gate_attn"])) * o
     m = L.apply_mlp(bp["mlp"], cfg, L.apply_norm(bp["ln2"], cfg, h))
-    return h + torch.tanh(bp["gate_mlp"]) * m
+    return h + torch.tanh(tp.seq_leaf(bp["gate_mlp"])) * m
 
 
 def image_kv_from_embeds(params, cfg: ModelConfig, image_embeds):
@@ -78,7 +84,7 @@ def forward(params, cfg: ModelConfig, tokens, image_kv, *, positions=None,
     """Returns (logits, the new self cache stacked (G * per_self, ...) or
     None)."""
     ng, per_self = group_shape(cfg)
-    h = L.embed_tokens(params["embed"], tokens)
+    h = L.embed_tokens(params["embed"], tokens, cfg)
     bps = T.unbind_layers(params["blocks"], ng * per_self)
     caches = (T.unbind_layers(self_cache, ng * per_self)
               if self_cache is not None else [None] * (ng * per_self))

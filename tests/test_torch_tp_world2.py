@@ -22,7 +22,8 @@ init(key 0) of a reduced config:
 - the dry run: rank 0's FLOPs traced on a fake "1x2" mesh equal a real
   gloo rank's; each family of the slice traced on fake "1x2", "2x2" and
   "1x4" meshes with finite terms, its train FLOPs falling with the model
-  axis; the hybrid, vlm and audio families skipped, naming A16c."""
+  axis; the hybrid, vlm and audio families traced by the CLI on "1x2",
+  with no skipped row in ``tools/dryrun_table.py``'s table."""
 import os
 import sys
 
@@ -167,30 +168,42 @@ def test_dryrun_model_axis_terms(arch, kind, mesh):
         assert res["flops"] < whole["flops"]
 
 
+# a depth of one shared-block group, one cross group, two layers each
+DEPTH = {"olmo-1b": ["n_layers=2"], "zamba2-7b": ["n_layers=6"],
+         "llama-3.2-vision-90b": ["n_layers=5"],
+         "seamless-m4t-medium": ["n_layers=2", "n_encoder_layers=2"]}
+
+
+def _sets(arch):
+    return [x for kv in DEPTH[arch] for x in ("--set", kv)]
+
+
 def test_dryrun_skips_families_outside_the_slice(capsys):
-    """The CLI on a model axis reports the hybrid, vlm and audio pairs as
-    skipped for A16c, not as failures."""
+    """The CLI on a model axis traces the hybrid, vlm and audio pairs
+    (once skipped, before their layers took a model axis): none is
+    skipped or fails."""
     for arch in ("zamba2-7b", "llama-3.2-vision-90b",
                  "seamless-m4t-medium"):
-        D.main(["--arch", arch, "--shape", "train_4k", "--mesh-shape",
-                "1x2", "--device", "cpu"])
+        D.main(["--arch", arch, "--shape", "decode_32k", "--mesh-shape",
+                "1x2", "--device", "cpu"] + _sets(arch))
         out = capsys.readouterr().out
-        assert f"SKIP {arch} x train_4k on 1x2" in out and "A16c" in out
+        assert f"=== {arch}__decode_32k__1x2" in out and "SKIP" not in out
+        assert "dry-run complete: every combination traced" in out
 
 
 def test_dryrun_table_model_axis_rows(tmp_path, capsys):
-    """``tools/dryrun_table.py``'s table on a model-axis mesh: a traced
-    pair's per-rank terms, and "skipped" for an A16c family's pair."""
+    """``tools/dryrun_table.py``'s table on a model-axis mesh: each pair's
+    per-rank terms, the hybrid's too, none skipped."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "tools"))
     import dryrun_table
     out = str(tmp_path)
     for arch in ("olmo-1b", "zamba2-7b"):
         D.main(["--arch", arch, "--shape", "decode_32k", "--mesh-shape",
-                "1x2", "--device", "cpu", "--set", "n_layers=2", "--out",
-                out])
+                "1x2", "--device", "cpu", "--out", out] + _sets(arch))
     capsys.readouterr()
     rows = dryrun_table.table(out, ("1x2",)).splitlines()
-    olmo = next(r for r in rows if r.startswith("| olmo-1b | decode_32k"))
-    zamba = next(r for r in rows if r.startswith("| zamba2-7b | decode_32k"))
-    assert "skipped" not in olmo and "skipped" in zamba
+    for arch in ("olmo-1b", "zamba2-7b"):
+        row = next(r for r in rows if r.startswith(f"| {arch} | decode_32k"))
+        assert "skipped" not in row
+        assert float(row.split("|")[3]) >= 0      # TFLOP

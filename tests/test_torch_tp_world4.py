@@ -57,7 +57,8 @@ def curve_ref():
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     work = str(tmp_path_factory.mktemp("tp4"))
-    ref.write_inits(work, sorted(set(dc.TP_CASES)))
+    ref.write_inits(work, sorted(set(dc.TP_MESHES["1x4"])
+                                 | set(dc.TP_MESHES["2x2"])))
     dc.run_world("tp4", 4, work, timeout=600)
     return [dc.load(work, f"tp4_rank{r}") for r in range(4)]
 

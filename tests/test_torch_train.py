@@ -310,12 +310,17 @@ def test_hier_step_world1_equals_loss_and_adamw():
 
 def test_unported_options_raise():
     """``fsdp=True`` builds; a model axis > 1 (tensor parallelism) builds
-    the step for the dense, MoE and SSM families and raises for the
-    hybrid, vlm and audio families, naming the slice that ports them
-    (A16c); ``placement`` gives a spec's data and model dims."""
+    the step for every family, and under ``seq_shard``; only a model's
+    real limits raise, each with its own message: a rank without a head,
+    SSM heads the axis does not divide, and under ``seq_shard`` a sequence
+    it does not divide; ``placement`` gives a spec's data and model
+    dims."""
     from repro_torch.launch.dryrun import fake_world
     from repro_torch.launch.mesh import make_custom_mesh
+    from repro_torch.models import registry
     cfg = reduced(ARCHS["olmo-1b"])
+    assert set(registry.MODEL_AXIS_FAMILIES) == {
+        "dense", "moe", "ssm", "hybrid", "vlm", "audio"}
     with process_group("cpu"):
         mesh = ttrain.make_local_mesh("cpu")
         assert make_train_step(cfg, mesh, fsdp=True).fsdp is not None
@@ -323,16 +328,23 @@ def test_unported_options_raise():
             make_train_step(cfg, mesh, strategy="ps")
     with fake_world(2):
         mesh = make_custom_mesh("1x2", "cpu")
-        for arch in ("olmo-1b", "qwen2-moe-a2.7b", "mamba2-2.7b"):
-            step = make_train_step(reduced(ARCHS[arch]), mesh)
-            assert step.n_model == 2 and any(d is not None
-                                             for d in step.model)
-        for arch in ("zamba2-7b", "llama-3.2-vision-90b",
+        for arch in ("olmo-1b", "qwen2-moe-a2.7b", "mamba2-2.7b",
+                     "zamba2-7b", "llama-3.2-vision-90b",
                      "seamless-m4t-medium"):
-            with pytest.raises(NotImplementedError, match="model axis.*A16c"):
-                make_train_step(reduced(ARCHS[arch]), mesh)
-        with pytest.raises(NotImplementedError, match="seq_shard.*A16c"):
-            make_train_step(cfg.replace(seq_shard=True), mesh)
+            for seq in (False, True):
+                step = make_train_step(
+                    reduced(ARCHS[arch]).replace(seq_shard=seq), mesh)
+                assert step.n_model == 2 and any(d is not None
+                                                 for d in step.model)
+    with fake_world(8):
+        mesh = make_custom_mesh("1x8", "cpu")
+        with pytest.raises(NotImplementedError, match="without a head"):
+            make_train_step(cfg, mesh)
+    with pytest.raises(NotImplementedError, match="SSM heads"):
+        registry.check_model_axis(reduced(ARCHS["mamba2-2.7b"]), 32)
+    with pytest.raises(NotImplementedError, match="sequence of 30"):
+        registry.check_model_axis(cfg.replace(seq_shard=True), 4, [32, 30])
+    registry.check_model_axis(cfg, 4, [30])    # no seq_shard: any length
     assert placement(("data", "model"), model_size=2) == ((0, "data"),
                                                           (1, "model"))
     assert placement((None, "model", "data"), model_size=1) == ((2, "data"),

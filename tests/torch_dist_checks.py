@@ -309,13 +309,44 @@ TP_MESHES = {
     "2x2": ["olmo-1b", "qwen2.5-3b", "phi4-mini-3.8b",
             "qwen2-moe-a2.7b/g32", "mamba2-2.7b"],
 }
+# the hybrid, vlm and audio families (test_torch_tp_families*.py, suites
+# tpf2 and tpf4): "zamba2-7b/kv2" has 2 KV heads, which do not divide 4
+# ranks, so its ring splits their dims; reduced llama-vision has one KV
+# head, so its cross K/V splits the head dim on every mesh (and
+# tests/torch_tp_ref.py opens its gates to 0.5 on both sides). The "/seq"
+# cases run seq_shard (the reference's one-device program is the one
+# without it: the constraint changes no number); olmo-1b has no norm
+# parameters, so qwen2.5-3b is the dense family's case on "1x2"
+TP_CASES.update({
+    "zamba2-7b": ("zamba2-7b", {}),
+    "zamba2-7b/kv2": ("zamba2-7b", {"n_kv_heads": 2}),
+    "llama-3.2-vision-90b": ("llama-3.2-vision-90b", {}),
+    "seamless-m4t-medium": ("seamless-m4t-medium", {}),
+    **{f"{arch}/seq": (arch, {"seq_shard": True}) for arch in (
+        "olmo-1b", "qwen2.5-3b", "qwen2-moe-a2.7b", "mamba2-2.7b",
+        "zamba2-7b", "llama-3.2-vision-90b", "seamless-m4t-medium")},
+})
+TP_FAMILIES = ["zamba2-7b", "llama-3.2-vision-90b", "seamless-m4t-medium"]
+TP_FAMILY_MESHES = {
+    "1x2": TP_FAMILIES + [f"{a}/seq" for a in (
+        "qwen2.5-3b", "qwen2-moe-a2.7b", "mamba2-2.7b", "zamba2-7b",
+        "llama-3.2-vision-90b", "seamless-m4t-medium")],
+    "1x4": TP_FAMILIES + ["zamba2-7b/kv2", "olmo-1b/seq"],
+    "2x2": TP_FAMILIES,
+}
+# their prefill and serve steps: a prompt of TP_RING_PROMPT, longer than
+# reduced zamba2's window of 32, so that its ring wraps, then TP_DECODE
+# teacher-forced tokens, into a cache of TP_RING_SEQ
+TP_RING_PROMPT, TP_RING_SEQ = 40, 48
+TP_FAMILY_STEP_MESHES = {"1x2": TP_FAMILIES, "1x4": ["zamba2-7b/kv2"]}
 TP_BATCH, TP_SEQ = 4, 32          # configs.reduced_batch
 # the steps on "1x2": prefill TP_PREFILL tokens into a TP_SEQ cache, then
 # teacher-forced decode of the next TP_DECODE
 TP_PREFILL, TP_DECODE = 24, 3
 TP_STEP_CASES = ["olmo-1b", "qwen2.5-3b", "qwen2-moe-a2.7b", "mamba2-2.7b"]
 # the dry run's FLOPs at world 2 against a real rank's
-TP_DRYRUN_ARCHS = ["olmo-1b", "qwen2-moe-a2.7b", "mamba2-2.7b"]
+TP_DRYRUN_ARCHS = ["olmo-1b", "qwen2-moe-a2.7b", "mamba2-2.7b", "zamba2-7b",
+                   "llama-3.2-vision-90b", "seamless-m4t-medium"]
 TP_DRYRUN_BATCH = 2
 
 
@@ -361,15 +392,10 @@ def _tp_forward(cfg, mesh, params, batch_np, out, key):
     from repro_torch.core.hier_sync import all_reduce
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.launch.steps import make_prefill_step, make_train_step
-    from repro_torch.models import layers as L
-    from repro_torch.models import registry
     step = make_train_step(cfg, mesh)
     held = step.shard_params(params)
     batch = T.from_numpy(step.local_batch(batch_np), "cpu")
-    with tp.model_parallel(step.model_group), \
-            L.global_label_count(step.group, step.n_data):
-        loss, grads = T.value_and_grad(lambda p, b: registry.loss_fn(
-            step.model_params(p), cfg, b))(held, batch)
+    loss, grads = step.loss_and_grads(held, batch)
     grads = T.tree_map(lambda g: all_reduce(g, step.group) / step.n_data,
                        grads)
     pre = make_prefill_step(cfg, mesh)
@@ -386,9 +412,9 @@ def _tp_forward(cfg, mesh, params, batch_np, out, key):
     out[f"{key}/n_split"] = np.array(sum(d is not None for d in step.model))
 
 
-def _tp_models(mesh_name, mesh, workdir, out):
+def _tp_models(mesh_name, mesh, workdir, out, cases=None):
     from repro_torch.configs import reduced_batch
-    for case in TP_MESHES[mesh_name]:
+    for case in TP_MESHES[mesh_name] if cases is None else cases:
         cfg = tp_config(case)
         params = load_params(os.path.join(
             workdir, f"init_{case.replace('/', '_')}.npz"), cfg)
@@ -397,38 +423,42 @@ def _tp_models(mesh_name, mesh, workdir, out):
                     f"{mesh_name}/{case}")
 
 
-def _tp_steps(mesh, workdir, out):
+def _tp_steps(mesh, workdir, out, cases=None, prompt=TP_PREFILL,
+              max_seq=TP_SEQ, prefix="steps"):
     """make_prefill_step / make_serve_step on ``mesh`` against the same
     calls at world size 1 (registry.prefill / decode_step on the whole
-    params, in this process): the last position's logits of prefill and
-    of each decode step, and the caches gathered back."""
+    params, in this process): the last position's logits of prefill (of
+    ``prompt`` tokens into a ``max_seq`` cache) and of each decode step,
+    and the caches gathered back."""
     import torch
     from repro_torch.configs import reduced_batch
     from repro_torch.core import tree as T
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import registry
-    for case in TP_STEP_CASES:
+    for case in TP_STEP_CASES if cases is None else cases:
         cfg = tp_config(case)
-        params = load_params(os.path.join(workdir, f"init_{case}.npz"), cfg)
+        params = load_params(os.path.join(
+            workdir, f"init_{case.replace('/', '_')}.npz"), cfg)
         pre, serve = make_prefill_step(cfg, mesh), make_serve_step(cfg, mesh)
         held = pre.shard_params(params)
-        toks = torch.from_numpy(reduced_batch(cfg, TP_BATCH,
-                                              TP_SEQ)["tokens"])
-        key = f"steps/{case}"
+        batch = T.from_numpy(reduced_batch(cfg, TP_BATCH, max_seq), "cpu")
+        toks = batch.pop("tokens")
+        batch.pop("labels")
+        prompts = dict(batch, tokens=toks[:, :prompt])
+        key = f"{prefix}/{case}"
 
         def whole(logits, step):
             with tp.model_parallel(step.model_group):
                 return (tp.gather_from_model(logits, -1)
                         if logits.shape[-1] != cfg.vocab_padded else logits)
-        got, cache = pre(held, {"tokens": toks[:, :TP_PREFILL]},
-                         max_seq=TP_SEQ)
-        want, wcache = registry.prefill(
-            params, cfg, {"tokens": toks[:, :TP_PREFILL]}, max_seq=TP_SEQ)
+        got, cache = pre(held, prompts, max_seq=max_seq)
+        want, wcache = registry.prefill(params, cfg, prompts,
+                                        max_seq=max_seq)
         logits = [(whole(got, pre)[:, -1], want[:, -1])]
         out[f"{key}/cache_shapes"] = np.array(
             repr([tuple(x.shape) for x in T.leaves(cache)]))
-        for pos in range(TP_PREFILL, TP_PREFILL + TP_DECODE):
+        for pos in range(prompt, prompt + TP_DECODE):
             got, cache = serve(held, cache, pos, toks[:, pos:pos + 1])
             want, wcache = registry.decode_step(params, cfg, wcache, pos,
                                                 toks[:, pos:pos + 1])
@@ -505,6 +535,34 @@ def suite_tp2(rank, world, workdir):
     _save(workdir, "tp2", rank, out)
 
 
+def suite_tpf2(rank, world, workdir):
+    """2 ranks: the hybrid, vlm and audio cases and one seq_shard case of
+    each family on (model 2), and the three families' prefill and serve
+    steps on (model 2), zamba2's ring wrapped."""
+    from repro_torch.launch.mesh import make_custom_mesh
+    out = {}
+    mesh = make_custom_mesh("1x2", "cpu")
+    _tp_models("1x2", mesh, workdir, out, TP_FAMILY_MESHES["1x2"])
+    _tp_steps(mesh, workdir, out, TP_FAMILY_STEP_MESHES["1x2"],
+              TP_RING_PROMPT, TP_RING_SEQ, "steps1x2")
+    _save(workdir, "tpf2", rank, out)
+
+
+def suite_tpf4(rank, world, workdir):
+    """4 ranks: the hybrid, vlm and audio cases on (model 4) and (data 2,
+    model 2), zamba2 with a head-dim-split ring (its steps too) and
+    olmo-1b under seq_shard on (model 4)."""
+    from repro_torch.launch.mesh import make_custom_mesh
+    out = {}
+    mesh = make_custom_mesh("1x4", "cpu")
+    _tp_models("1x4", mesh, workdir, out, TP_FAMILY_MESHES["1x4"])
+    _tp_steps(mesh, workdir, out, TP_FAMILY_STEP_MESHES["1x4"],
+              TP_RING_PROMPT, TP_RING_SEQ, "steps1x4")
+    _tp_models("2x2", make_custom_mesh("2x2", "cpu"), workdir, out,
+               TP_FAMILY_MESHES["2x2"])
+    _save(workdir, "tpf4", rank, out)
+
+
 def suite_tp4(rank, world, workdir):
     """4 ranks: the TP cases on (model 4) and on (data 2, model 2), and
     the reference's 40-step ``hier`` curve on (data 2, model 2), with
@@ -537,7 +595,8 @@ def main():
         world_size=world, rank=rank)
     try:
         {"hier_sync": suite_hier_sync, "train": suite_train,
-         "tp2": suite_tp2, "tp4": suite_tp4}[suite](rank, world, workdir)
+         "tp2": suite_tp2, "tp4": suite_tp4, "tpf2": suite_tpf2,
+         "tpf4": suite_tpf4}[suite](rank, world, workdir)
         dist.barrier()
     finally:
         dist.destroy_process_group()

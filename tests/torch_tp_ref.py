@@ -24,17 +24,39 @@ GRAD_RTOL, GRAD_ATOL = 5e-4, 1e-5
 LOGITS_RTOL, LOGITS_ATOL = 1e-4, 5e-5
 
 
-def jax_config(case):
+# the vlm cases' cross gates, opened on both sides: closed (0 at init)
+# they would hide a broken cross layer (tests/test_torch_vlm.py's)
+GATE = 0.5
+
+
+def _program(case):
+    """(arch, the overrides) of ``case``'s one-device program: without
+    ``seq_shard``, whose constraint has no mesh to name on one device and
+    changes no number."""
     arch, over = dc.TP_CASES[case]
-    return j_reduced(J_ARCHS[arch]).replace(**over)
+    return arch, tuple(sorted((k, v) for k, v in over.items()
+                              if k != "seq_shard"))
 
 
-@functools.lru_cache(maxsize=None)
+def jax_config(case):
+    arch, over = _program(case)
+    return j_reduced(J_ARCHS[arch]).replace(**dict(over))
+
+
 def reference(case):
     """{"init", "loss", "logits", "grads"} of ``case`` on one device, as
     numpy (init and grads keyed by leaf path)."""
-    cfg = jax_config(case)
+    return _reference(*_program(case))
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(arch, over):
+    cfg = j_reduced(J_ARCHS[arch]).replace(**dict(over))
     params = jreg.init(jax.random.key(0), cfg)
+    if cfg.family == "vlm":
+        params["cross"] = dict(params["cross"], **{
+            g: jax.numpy.full_like(params["cross"][g], GATE)
+            for g in ("gate_attn", "gate_mlp")})
     batch = reduced_batch(cfg, dc.TP_BATCH, dc.TP_SEQ)
     loss, grads = jax.value_and_grad(
         lambda p: jreg.loss_fn(p, cfg, batch))(params)

@@ -3,16 +3,16 @@ meshes, or on the meshes named by ``--mesh-shape``, several pairs at a
 time, and print a markdown table of the per-rank terms.
 
     PYTHONPATH=src python tools/dryrun_table.py --out experiments/dryrun \\
-        [--jobs 8] [--device cuda] [--arch ARCH ...] \\
-        [--mesh-shape 32x8 --mesh-shape 2x32x8 ...]
+        [--jobs 8] [--device cuda] [--arch ARCH ...] [--shape SHAPE ...] \\
+        [--mesh-shape 32x8 --mesh-shape 2x32x8 ...] [--set seq_shard=True]
 
 Each pair is one ``python -m repro_torch.launch.dryrun --arch A --shape S
 --both-meshes --out DIR`` process (with ``--mesh-shape``, one process per
 pair and mesh); together they are the CLI's ``--all --both-meshes``
-(``--arch``, repeated, keeps only those archs' pairs). On a mesh with a
-model axis the families not ported to one (ROADMAP A16c) are marked
-skipped. The table reads the per-pair JSON files. Exits 1, listing them,
-if any pair failed.
+(``--arch`` and ``--shape``, repeated, keep only those archs' and
+shapes' pairs; ``--set`` passes a config override on, e.g.
+``seq_shard=True``, into an ``--out`` of its own). The table reads the
+per-pair JSON files. Exits 1, listing them, if any pair failed.
 """
 from __future__ import annotations
 
@@ -30,10 +30,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.configs import pairs  # noqa: E402
 
 
-def run_pair(arch: str, shape: str, out: str, device: str, mesh=None):
+def run_pair(arch: str, shape: str, out: str, device: str, mesh=None,
+             sets=()):
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
            "--shape", shape, "--out", out, "--device", device]
     cmd += ["--mesh-shape", mesh] if mesh else ["--both-meshes"]
+    for kv in sets:
+        cmd += ["--set", kv]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
     proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
@@ -50,7 +53,7 @@ PRODUCTION = ("256x1", "2x256x1")
 def table(out: str, meshes=PRODUCTION) -> str:
     """One row per (arch, shape): the per-rank terms on each of
     ``meshes`` in order, one value where they agree, else each (joined
-    by "/"); a pair skipped on a mesh (ROADMAP A16c) reads "skipped"."""
+    by "/")."""
     runs = {}
     for path in sorted(glob.glob(os.path.join(out, "*.json"))):
         with open(path) as f:
@@ -59,8 +62,7 @@ def table(out: str, meshes=PRODUCTION) -> str:
             runs.setdefault((r["arch"], r["shape"]), {})[r["mesh"]] = r
 
     def both(rs, fmt):
-        vals = [("skipped" if "skipped" in rs[m] else fmt(rs[m]))
-                for m in meshes if m in rs]
+        vals = [fmt(rs[m]) for m in meshes if m in rs]
         return vals[0] if len(set(vals)) == 1 else " / ".join(vals)
 
     def mem(key, scale, digits):
@@ -88,16 +90,24 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--arch", action="append",
                     help="only this arch's pairs (repeatable)")
+    ap.add_argument("--shape", action="append",
+                    help="only this shape's pairs (repeatable)")
+    ap.add_argument("--set", action="append", default=[],
+                    help="a config override for every pair, e.g. "
+                    "seq_shard=True (repeatable)")
     ap.add_argument("--mesh-shape", action="append",
                     help="a mesh instead of the two production ones, e.g. "
                     "32x8, 2x32x8, 16x16, 2x16x16 (repeatable)")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
-    todo = [(a, s, m) for a, s in pairs() if not args.arch or a in args.arch
+    todo = [(a, s, m) for a, s in pairs()
+            if (not args.arch or a in args.arch)
+            and (not args.shape or s in args.shape)
             for m in (args.mesh_shape or [None])]
     with ThreadPoolExecutor(args.jobs) as pool:
         done = list(pool.map(lambda p: run_pair(p[0], p[1], args.out,
-                                                args.device, p[2]), todo))
+                                                args.device, p[2], args.set),
+                             todo))
     meshes = tuple(args.mesh_shape or PRODUCTION)
     print(table(args.out, meshes))
     failed = [(a, s, m) for a, s, m, rc in done if rc]
@@ -105,7 +115,7 @@ def main(argv=None):
         print("FAILURES:", failed)
         raise SystemExit(1)
     print(f"dry run complete: {len(todo) // len(args.mesh_shape or [1])} "
-          f"pairs x {len(meshes)} meshes traced or skipped")
+          f"pairs x {len(meshes)} meshes traced")
 
 
 if __name__ == "__main__":
