@@ -17,11 +17,13 @@ non-zero before the result lines:
      (FLASH_BF16_REL_NORM);
   4. wiring at full width, depth 2, f32: loss and pooled mean gradient with
      both kernels on equal the run with both off (loss rtol 1e-5, grads
-     rtol 5e-4 / atol 1e-5);
+     rtol 5e-4 / atol 1e-5), each worker's gradient through the CUDA-core
+     flash backward;
   5. the main path: full-width olmo-1b in bf16, SMLT's Fig. 5 loop through
      LocalWorkerPool(n=4, scatter_reduce, bsp, use_kernel=True) with the
      flash kernel and AdamW, global batch 8 x 2048 tokens, 3 steps; the
-     kernels' launch counts are checked;
+     kernels' launch counts are checked, the flash backward's too (one for
+     each forward with a gradient: 16 x 4 x 3, all on wgmma);
   6. timing (CUDA events around 20 calls back to back, median of 5
      batches) of each kernel, its plain version
      and one PyTorch library call at the main-path shapes, with its bound,
@@ -92,12 +94,13 @@ non-zero before the result lines:
      params rtol 5e-4 / atol 1e-5), with the flash kernel on and off; flash
      on against off, and remat "full" and "dots" against remat off, on the
      loss (rtol 1e-5) and gradient (rtol 5e-4 / atol 1e-5), with exact
-     flash launch counts (remat's recompute runs the forward again);
+     flash launch counts, forward and backward (remat's recompute runs the
+     forward again, not the backward);
  17. the sixth slice's main path: full-width olmo-1b in bf16 trained through
      launch/train.py::train with the hier step (reduce-scatter, AdamW on
      the shards, all-gather) at world size 1, the flash kernel, batch 8 x
-     2048, 5 steps; losses finite, exactly 16 x 5 flash launches, all on
-     the tensor cores; step seconds, tokens/s and peak memory beside phase
+     2048, 5 steps; losses finite, exactly 16 x 5 flash launches and as
+     many of its backward, all on the tensor cores; step seconds, tokens/s and peak memory beside phase
      5's pool step (the flash kernel at this (8, 16, 2048, 128) shape is
      phase 15's qwen2-moe row);
  18. the port's examples/train_e2e.py at its default size (35,660,288
@@ -164,7 +167,8 @@ non-zero before the result lines:
  29. the ZeRO-3 step at full width: phase 17's run (olmo-1b, bf16, 8 x
      2048, 5 steps through launch/train.py::train, world size 1 on NCCL)
      with make_train_step(fsdp=True): losses equal phase 17's at rtol
-     1e-5, exactly 16 x 5 flash launches, all on wgmma; step seconds,
+     1e-5, exactly 16 x 5 flash launches and 16 x 5 backward, all on
+     wgmma; step seconds,
      tokens/s and peak beside phase 17's;
  30. the dry run held against the card: launch/dryrun.py's lower_one for
      full-width olmo-1b (hier, fsdp=True, remat, the flash kernel) on a
@@ -242,6 +246,17 @@ non-zero before the result lines:
      the model group) within 1e-3 (relative norm) of world size 1's, then
      3 hier steps' losses within 1e-3; then the local shapes of phase 35
      held against their plain versions and timed as in phase 6.
+ 38. the flash backward (csrc/flash_attention_bwd.cu) against
+     plain_flash_attention_bwd: phase 3's sweep for every head dim (32, 64,
+     112, 128) on both routes (f32 rtol 5e-4 / atol 1e-5; bf16 2e-2 / 2e-2
+     and each of dq, dk, dv within FLASH_BWD_BF16_REL_NORM), the forward's
+     lse against plain_flash_lse, one padded length through
+     ops.flash_attention's autograd; bf16 at the training shapes (2, 16,
+     2048, 128), (8, 16, 2048, 128), (2, 8, 2048, 128) and zamba2's (4, 32,
+     4096, 112) window 4096, two calls bit-equal; then each timed as in
+     phase 6 beside its plain version, the library's flash backward and
+     its bound. Phases 30, 32 and 37 also check the backward's launches
+     exactly (16 under remat against 32 forwards; 16 x 3 a rank).
 
 The second-to-last line is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero without.
@@ -516,9 +531,11 @@ def check_wiring(cfg, device, batch_size: int, seq: int):
     import torch
     from repro_torch.core import tree as T
     from repro_torch.models import registry
+    from repro_torch.kernels import flash_attention as fa
     params = registry.init(0, cfg, device)
     batch = T.from_numpy(make_loader(cfg, seq).next_batch(batch_size), device)
     results = {}
+    zero_counts()
     for on in (False, True):
         c = cfg.replace(use_flash_kernel=on)
         with torch.no_grad():
@@ -526,6 +543,12 @@ def check_wiring(cfg, device, batch_size: int, seq: int):
         grads = pool_for(c, use_kernel=on).step(params, batch)
         results[on] = (loss, grads)
     (l0, g0), (l1, g1) = results[False], results[True]
+    # each worker's gradient through the CUDA-core backward
+    bwd = fa.BWD_ROUTE_LAUNCHES
+    require(device.type == "cpu" or bwd == {
+        "wgmma": 0, "cuda_cores": N_WORKERS * cfg.n_layers},
+        f"f32 wiring's flash backward routes {bwd}: want "
+        f"{N_WORKERS * cfg.n_layers} on the CUDA cores")
     require(math.isfinite(l0) and abs(l1 - l0) <= 1e-5 * abs(l0),
             f"wiring loss: kernels on {l1!r} vs off {l0!r} (rtol 1e-5)")
     worst = 0.0
@@ -871,7 +894,23 @@ def kernel_counts():
     from repro_torch.kernels import ssd_scan as ssd
     return {"aggregate_shards": hier_agg.LAUNCHES,
             "aggregate_and_apply": hier_agg.APPLY_LAUNCHES,
-            "flash_attention": fa.LAUNCHES, "ssd_scan": ssd.LAUNCHES}
+            "flash_attention": fa.LAUNCHES,
+            "flash_attention_bwd": fa.BWD_LAUNCHES,
+            "ssd_scan": ssd.LAUNCHES}
+
+
+def flash_routes():
+    """The flash forward's and backward's launches by route."""
+    from repro_torch.kernels import flash_attention as fa
+    return {"fwd": dict(fa.ROUTE_LAUNCHES), "bwd": dict(fa.BWD_ROUTE_LAUNCHES)}
+
+
+def require_wgmma(routes: dict, want: dict, what: str):
+    """Every flash forward and backward of ``want``'s counts on wgmma."""
+    need = {"fwd": {"wgmma": want["flash_attention"], "cuda_cores": 0},
+            "bwd": {"wgmma": want["flash_attention_bwd"], "cuda_cores": 0}}
+    require(routes == need, f"{what}'s flash routes {routes}: want all on "
+            f"wgmma, {need}")
 
 
 def zero_counts():
@@ -879,8 +918,9 @@ def zero_counts():
     from repro_torch.kernels import hier_agg
     from repro_torch.kernels import ssd_scan as ssd
     hier_agg.LAUNCHES = hier_agg.APPLY_LAUNCHES = 0
-    fa.LAUNCHES = ssd.LAUNCHES = 0
-    for routes in (fa.ROUTE_LAUNCHES, ssd.ROUTE_LAUNCHES):
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ssd.LAUNCHES = 0
+    for routes in (fa.ROUTE_LAUNCHES, fa.BWD_ROUTE_LAUNCHES,
+                   ssd.ROUTE_LAUNCHES):
         for route in routes:
             routes[route] = 0
 
@@ -1147,9 +1187,10 @@ def modality_inputs(cfg, batch_size: int, seq: int, device, seed: int = 0):
             for k, t in batch_extras(cfg, batch_size, seq).items()}
 
 
-def want_launches(flash: int = 0, ssd: int = 0) -> dict:
+def want_launches(flash: int = 0, ssd: int = 0, flash_bwd: int = 0) -> dict:
     return {"aggregate_shards": 0, "aggregate_and_apply": 0,
-            "flash_attention": flash, "ssd_scan": ssd}
+            "flash_attention": flash, "flash_attention_bwd": flash_bwd,
+            "ssd_scan": ssd}
 
 
 @contextlib.contextmanager
@@ -1447,8 +1488,9 @@ def check_train_step_wiring(cfg, device, batch_size: int, seq: int):
             step = make_train_step(c, mesh, strategy="hier", optimizer=opt)
             got, state, step_loss = step(params, step.init_opt_state(params),
                                          batch)
-            require(fa.LAUNCHES == 2 * c.n_layers * flash,
-                    f"flash {flash}: {fa.LAUNCHES} launches")
+            require(fa.LAUNCHES == fa.BWD_LAUNCHES == 2 * c.n_layers * flash,
+                    f"flash {flash}: {fa.LAUNCHES} launches, "
+                    f"{fa.BWD_LAUNCHES} of the backward")
             require(abs(float(step_loss) - float(loss))
                     <= 1e-5 * abs(float(loss)),
                     f"hier step loss {float(step_loss)!r} vs direct "
@@ -1476,9 +1518,12 @@ def check_train_step_wiring(cfg, device, batch_size: int, seq: int):
             loss, g = T.value_and_grad(
                 lambda p, b: registry.loss_fn(p, c, b))(params, batch)
             loss = float(loss)
-            require(fa.LAUNCHES == 2 * c.n_layers,
-                    f"{name}: {fa.LAUNCHES} flash launches, want "
-                    f"{2 * c.n_layers} (the forward and its recompute)")
+            require(fa.LAUNCHES == 2 * c.n_layers
+                    and fa.BWD_LAUNCHES == c.n_layers,
+                    f"{name}: {fa.LAUNCHES} flash launches and "
+                    f"{fa.BWD_LAUNCHES} of the backward, want "
+                    f"{2 * c.n_layers} (the forward and its recompute) and "
+                    f"{c.n_layers}")
             ref_loss, ref_g = grads[True]
         require(abs(loss - ref_loss) <= 1e-5 * abs(ref_loss),
                 f"{name}: loss {loss!r} vs {ref_loss!r} (rtol 1e-5)")
@@ -1496,7 +1541,6 @@ def run_hier_training(cfg, device, batch_size: int, seq: int, steps: int,
     step seconds, launches, routes, peak bytes)."""
     import torch
     from repro_torch.core import tree as T
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.train import train
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1506,7 +1550,7 @@ def run_hier_training(cfg, device, batch_size: int, seq: int, steps: int,
                                    device=device, fsdp=fsdp)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    launches, routes = kernel_counts(), dict(fa.ROUTE_LAUNCHES)
+    launches, routes = kernel_counts(), flash_routes()
     require(all(math.isfinite(x) for x in losses), f"losses {losses}")
     for p in T.leaves(params):
         require(bool(p.float().isfinite().all()), "non-finite parameters")
@@ -1537,7 +1581,6 @@ def check_dryrun(device, batch_size: int, seq: int):
     remat off)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import make_custom_mesh, process_group
     from repro_torch.models import registry
@@ -1561,7 +1604,7 @@ def check_dryrun(device, batch_size: int, seq: int):
             out = step(*args)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        launches, routes = kernel_counts(), dict(fa.ROUTE_LAUNCHES)
+        launches, routes = kernel_counts(), flash_routes()
         require(math.isfinite(float(out[2])), f"loss {float(out[2])}")
         params = args[0]
         del out, args, step
@@ -1998,7 +2041,6 @@ def tp_train_rank(device, workdir, seq: bool = False):
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import ARCHS
     from repro_torch.core import tree as T
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.hlo_stats import CollectiveRecorder
     from repro_torch.launch.train import train
@@ -2015,7 +2057,7 @@ def tp_train_rank(device, workdir, seq: bool = False):
             mesh_shape=f"1x{TP_RANKS}")
     torch.cuda.synchronize()
     out = dict(losses=losses, step_s=step_s, launches=kernel_counts(),
-               routes=dict(fa.ROUTE_LAUNCHES), shapes=shapes,
+               routes=flash_routes(), shapes=shapes,
                peak_bytes=torch.cuda.max_memory_allocated())
     require(all(math.isfinite(x) for x in losses), f"losses {losses}")
     for p in T.leaves(params):
@@ -2508,7 +2550,8 @@ def run_tp_phases(device, gen, card: str, flash_rows: list,
     log(f"  world size 1: losses {w_losses}, step seconds {w_step_s}, peak "
         f"{w_peak} bytes; the ranks' phase took "
         f"{time.perf_counter() - t0:.1f} s")
-    want = want_launches(flash=tcfg.n_layers * TP_TRAIN_STEPS)
+    want = want_launches(flash=tcfg.n_layers * TP_TRAIN_STEPS,
+                         flash_bwd=tcfg.n_layers * TP_TRAIN_STEPS)
     local = (TP_TRAIN_BATCH, tcfg.n_heads // TP_RANKS, SEQ,
              tcfg.resolved_head_dim)
     for rank, r in enumerate(tr):
@@ -2523,9 +2566,7 @@ def run_tp_phases(device, gen, card: str, flash_rows: list,
                 f"rank {rank}'s losses {r['losses']} against {w_losses}")
         require(r["launches"] == want, f"rank {rank}'s launches "
                 f"{r['launches']} != {want}")
-        require(r["routes"] == {"wgmma": want["flash_attention"],
-                                "cuda_cores": 0},
-                f"rank {rank}'s flash routes {r['routes']}")
+        require_wgmma(r["routes"], want, f"rank {rank}")
         require(r["shapes"] == {"flash": {str(local):
                                           want["flash_attention"]}},
                 f"rank {rank}'s flash shapes {r['shapes']}, want {local}")
@@ -2645,7 +2686,9 @@ def run_tp_phases(device, gen, card: str, flash_rows: list,
                          max_abs_err=tp_ssd_err, cuda_cores_ms=cc_ms, **t))
     log(f"  ssd_scan at {ssm.arch_id}'s local shape: {ssd_rows[-1]}")
     return dict(w_losses=w_losses32, peaks=[r["peak_bytes"] for r in tr],
-                collectives=pred["collectives"], tp_note=tp_note)
+                collectives=pred["collectives"], tp_note=tp_note,
+                bwd_launches=sum(r["launches"]["flash_attention_bwd"]
+                                 for r in tr))
 
 
 def run_tp_family_phases(device, gen, card: str, flash_rows: list,
@@ -2744,7 +2787,8 @@ def run_tp_family_phases(device, gen, card: str, flash_rows: list,
     log(f"  the ranks' phase took {time.perf_counter() - t0:.1f} s")
     w_losses = p32["w_losses"]
     olmo = tp_family_config("olmo-1b")
-    want = want_launches(flash=olmo.n_layers * TP_TRAIN_STEPS)
+    want = want_launches(flash=olmo.n_layers * TP_TRAIN_STEPS,
+                         flash_bwd=olmo.n_layers * TP_TRAIN_STEPS)
     local = (TP_TRAIN_BATCH, olmo.n_heads // TP_RANKS, SEQ,
              olmo.resolved_head_dim)
     for rank, r in enumerate(tr):
@@ -2760,9 +2804,7 @@ def run_tp_family_phases(device, gen, card: str, flash_rows: list,
                 f"rank {rank}'s losses {r['losses']} against {w_losses}")
         require(r["launches"] == want, f"rank {rank}'s launches "
                 f"{r['launches']} != {want}")
-        require(r["routes"] == {"wgmma": want["flash_attention"],
-                                "cuda_cores": 0},
-                f"rank {rank}'s flash routes {r['routes']}")
+        require_wgmma(r["routes"], want, f"rank {rank}")
         require(r["shapes"] == {"flash": {str(local):
                                           want["flash_attention"]}},
                 f"rank {rank}'s flash shapes {r['shapes']}, want {local}")
@@ -2797,6 +2839,8 @@ def run_tp_family_phases(device, gen, card: str, flash_rows: list,
     row32 = next(r for r in flash_rows
                  if r["model"] == f"{olmo.arch_id} (1x{TP_RANKS} rank)")
     row32["launches"] += sum(r["launches"]["flash_attention"] for r in tr)
+    p32["seq_bwd_launches"] = sum(r["launches"]["flash_attention_bwd"]
+                                  for r in tr)
     check_seq_leaves(device, tp_note)
 
     hyb, vis, aud = (cells[a][0] for a in TP_FAMILY_CELLS)
@@ -2824,6 +2868,160 @@ def run_tp_family_phases(device, gen, card: str, flash_rows: list,
                          max_abs_err=ssd_err, cuda_cores_ms=cc_ms, **t))
     log(f"  ssd_scan at {ssd_name}'s shape: {ssd_rows[-1]}")
 
+
+
+# ---------------------------------------------------------------------------
+# phase 38: the flash backward against its plain version, timed
+# ---------------------------------------------------------------------------
+
+# ||got - want|| / ||want|| of each bf16 gradient against the plain
+# backward: P and dS are rounded to bf16 for the products, where the
+# forward rounds only P (FLASH_BF16_REL_NORM)
+FLASH_BWD_BF16_REL_NORM = 1e-2
+# phase 3's sweep for the backward: (seq, causal, window) at (2, 4, s, d)
+# for every head dim, 160 not a multiple of any tile
+FLASH_BWD_SWEEP = ((128, True, 0), (160, True, 0), (384, True, 16),
+                   (384, True, 64), (384, True, 100), (256, False, 0))
+
+
+def bwd_case(shape, dtype, gen, device, causal: bool = True,
+             window: int = 0):
+    """q, k, v on the model's (b, s, h, d) views, the kernel forward's
+    output and lse, and dO in the output's layout (the model's
+    out.transpose(1, 2).reshape(b, s, h * d) @ wo hands it so)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = bshd_views(shape, dtype, gen, device)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    g = bshd_views(shape, dtype, gen, device)[0]
+    return q, k, v, out, lse, g
+
+
+def hold_bwd(got, want, what: str):
+    """dq, dk, dv against the plain ones: f32 rtol 5e-4 / atol 1e-5, bf16
+    2e-2 / 2e-2 and each within FLASH_BWD_BF16_REL_NORM; returns (max abs
+    error, worst relative norm error)."""
+    import torch
+    err, rel = 0.0, 0.0
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        bf16 = a.dtype == torch.bfloat16
+        err = max(err, require_close(a, w, *((2e-2, 2e-2) if bf16
+                                             else (5e-4, 1e-5)),
+                                     f"{what} {name}"))
+        r = rel_norm_err(a, w)
+        rel = max(rel, r)
+        require(not bf16 or r < FLASH_BWD_BF16_REL_NORM, f"{what} {name}: "
+                f"relative norm error {r:.3e} >= {FLASH_BWD_BF16_REL_NORM}")
+    return err, rel
+
+
+def check_flash_bwd(device, gen, shapes) -> dict:
+    """The backward kernels against plain_flash_attention_bwd: the sweep on
+    both routes and every head dim, one padded length through
+    ops.flash_attention's autograd against the plain forward's, and the
+    bf16 ``shapes`` ((name, shape, window)) with two calls bit-equal.
+    Returns each shape's (max abs error, relative norm error)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    routes = dict(fa.BWD_ROUTE_LAUNCHES)
+    rels = []
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in fa.HEAD_DIMS:
+            for seq, causal, window in FLASH_BWD_SWEEP:
+                case = bwd_case((2, 4, seq, d), dtype, gen, device, causal,
+                                window)
+                what = (f"flash bwd {dtype} d={d} seq={seq} causal={causal} "
+                        f"window={window}")
+                require_close(case[4], fa.plain_flash_lse(
+                    *case[:2], causal=causal, window=window), 1e-5, 1e-5,
+                    f"{what} lse")
+                got = fa.flash_attention_bwd(*case, causal=causal,
+                                             window=window)
+                rels.append(hold_bwd(got, fa.plain_flash_attention_bwd(
+                    *case, causal=causal, window=window), what)[1])
+                n += 1
+        q, k, v = [x.detach().requires_grad_(True) for x in
+                   bshd_views((2, 4, 200, 64), dtype, gen, device)]
+        g = bshd_views((2, 4, 200, 64), dtype, gen, device)[0]
+        out = ops.flash_attention(q, k, v, causal=True, window=48,
+                                  block_q=64, block_k=64)
+        got = torch.autograd.grad(out, (q, k, v), g)
+        want = torch.autograd.grad(fa.plain_flash_attention(
+            q, k, v, causal=True, window=48), (q, k, v), g)
+        hold_bwd(got, want, f"flash bwd {dtype} padded 200 -> 256")
+        n += 1
+    new = {r: c - routes[r] for r, c in fa.BWD_ROUTE_LAUNCHES.items()}
+    if device.type == "cuda":              # a CPU rehearsal launches nothing
+        require(new == {"wgmma": n // 2, "cuda_cores": n // 2},
+                f"flash bwd routes {new}: want each dtype's {n // 2} cases "
+                "on its route")
+    log(f"  sweep: {n} cases within tolerance (routes {new}; bf16 relative "
+        f"norm errors {min(rels[len(rels) // 2:]):.3e} to "
+        f"{max(rels[len(rels) // 2:]):.3e}, limit {FLASH_BWD_BF16_REL_NORM})")
+    errs = {}
+    for name, shape, window in shapes:
+        case = bwd_case(shape, torch.bfloat16, gen, device, True, window)
+        got = fa.flash_attention_bwd(*case, causal=True, window=window)
+        again = fa.flash_attention_bwd(*case, causal=True, window=window)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"flash bwd at {shape}: two calls differ")
+        require(device.type == "cpu" or all(
+            x.transpose(1, 2).is_contiguous() for x in got),
+            "flash bwd gradients not in (b, s, h, d) memory")
+        errs[name] = hold_bwd(got, fa.plain_flash_attention_bwd(
+            *case, causal=True, window=window), f"flash bwd {name} {shape}")
+        log(f"  {name} {shape} bf16 window {window}: max abs err "
+            f"{errs[name][0]:.3e}, relative norm err {errs[name][1]:.3e}; two "
+            "calls bit-equal")
+        del case, got, again
+        torch.cuda.empty_cache()
+    return errs
+
+
+def time_flash_bwd(device, shape, gen, window: int = 0):
+    """The bf16 backward on the model's views, causal with ``window``,
+    against its plain version and the library's flash backward
+    (``aten._scaled_dot_product_flash_attention_backward`` fed by its own
+    forward, where the window does not bite), with its bound: five
+    products over the visible pairs at the bf16 rate, or q, k, v, out, dO
+    and lse read and dq, dk, dv written once at the memory rate."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    b, h, s, d = shape
+    case = bwd_case(shape, torch.bfloat16, gen, device, True, window)
+    q, k, v, _, lse, g = case
+    w = window if 0 < window < s else s
+    pairs = w * (w + 1) / 2 + (s - w) * w
+    flops = 10.0 * b * h * d * pairs
+    io = 8 * q.numel() * q.element_size() + lse.numel() * 4
+    f = dict(
+        ms=time_ms(lambda: fa.flash_attention_bwd(*case, window=window)),
+        call_ms=call_ms(lambda: fa.flash_attention_bwd(*case,
+                                                       window=window)),
+        plain_ms=time_ms(lambda: fa.plain_flash_attention_bwd(
+            *case, window=window), runs=2, batches=3),
+        library_ms=None,
+        bound_ms=max(flops / BF16_FLOPS_PER_S, io / HBM_BYTES_PER_S) * 1e3,
+        bound_by="operations" if flops / BF16_FLOPS_PER_S
+        >= io / HBM_BYTES_PER_S else "bytes")
+    if w == s:
+        sdpa = torch.ops.aten._scaled_dot_product_flash_attention(
+            q, k, v, 0.0, True)
+        out, lse_s, cq, ck, mq, mk, seed, offset = sdpa[:8]
+        f["library_ms"] = time_ms(
+            lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                g, q, k, v, out, lse_s, cq, ck, mq, mk, 0.0, True, seed,
+                offset))
+    lib = (f" {f['ms'] / f['library_ms']:.2f}x the library's;"
+           if f["library_ms"] else "")
+    log(f"  flash_attention_bwd ({fa.flash_route(q.dtype, d)}) at {shape} "
+        f"bf16 causal{f' window {window}' if window else ''}: "
+        f"{flops / f['ms'] / 1e9:.1f} TFLOP/s of the five products, "
+        f"{f['bound_ms'] / f['ms']:.3f} of its bound,{lib} "
+        f"{f['call_ms']:.4f} ms a call timed alone")
+    return f
 
 
 def main() -> int:
@@ -2889,16 +3087,17 @@ def main() -> int:
     log(f"  step seconds {step_s}; tokens/s "
         f"{[tokens / t for t in step_s]}; peak memory {peak} bytes "
         f"({peak / 2**30:.2f} GiB)")
-    want = {"flash_attention": cfg.n_layers * N_WORKERS * STEPS
-            + cfg.n_layers * STEPS,
-            "aggregate_shards": N_WORKERS * STEPS,
-            "aggregate_and_apply": 0, "ssd_scan": 0}
+    # a forward for each worker's gradient and one for the loss read,
+    # a backward for each gradient
+    want = dict(want_launches(
+        flash=cfg.n_layers * N_WORKERS * STEPS + cfg.n_layers * STEPS,
+        flash_bwd=cfg.n_layers * N_WORKERS * STEPS),
+        aggregate_shards=N_WORKERS * STEPS)
     log(f"  launches {launches}, expected {want}")
     require(launches == want, f"launch counts {launches} != {want}")
-    routes = dict(fa.ROUTE_LAUNCHES)
+    routes = flash_routes()
     log(f"  flash launches by route {routes}")
-    require(routes == {"wgmma": want["flash_attention"], "cuda_cores": 0},
-            f"bf16 main path's flash routes {routes}: want all on wgmma")
+    require_wgmma(routes, want, "the bf16 main path")
     torch.cuda.empty_cache()
 
     log("[6] timing (CUDA events, 20 calls back to back, median of 5; "
@@ -3026,11 +3225,11 @@ def main() -> int:
         f"2-{TRAIN_STEPS} median {statistics.median(h_step_s[1:])!r} s "
         f"against {statistics.median(step_s)!r} s; peak {h_peak / 2**30:.2f} "
         f"GiB against {peak / 2**30:.2f} GiB")
-    want = want_launches(flash=cfg.n_layers * TRAIN_STEPS)
+    want = want_launches(flash=cfg.n_layers * TRAIN_STEPS,
+                         flash_bwd=cfg.n_layers * TRAIN_STEPS)
     log(f"  launches {h_launches}, expected {want}; flash routes {h_routes}")
     require(h_launches == want, f"launch counts {h_launches} != {want}")
-    require(h_routes == {"wgmma": want["flash_attention"], "cuda_cores": 0},
-            f"hier training's flash routes {h_routes}: want all on wgmma")
+    require_wgmma(h_routes, want, "hier training")
     olmo_shape = (GLOBAL_BATCH, cfg.n_heads, SEQ, cfg.resolved_head_dim)
     require(flash_shapes[1][1] == olmo_shape, "the hier step's flash shape "
             "is not the one timed in phase 15")
@@ -3166,11 +3365,11 @@ def main() -> int:
         require(abs(a - b) <= 1e-5 * abs(b),
                 f"ZeRO-3 losses {z_losses} != phase 17's {h_losses} "
                 "(rtol 1e-5)")
-    want = want_launches(flash=cfg.n_layers * TRAIN_STEPS)
+    want = want_launches(flash=cfg.n_layers * TRAIN_STEPS,
+                         flash_bwd=cfg.n_layers * TRAIN_STEPS)
     log(f"  launches {z_launches}, expected {want}; flash routes {z_routes}")
     require(z_launches == want, f"launch counts {z_launches} != {want}")
-    require(z_routes == {"wgmma": want["flash_attention"], "cuda_cores": 0},
-            f"ZeRO-3 training's flash routes {z_routes}: want all on wgmma")
+    require_wgmma(z_routes, want, "ZeRO-3 training")
     flash_rows.append(dict(
         hier_row, model=f"{cfg.arch_id} (ZeRO-3 train step)",
         launches=z_launches["flash_attention"]))
@@ -3194,11 +3393,11 @@ def main() -> int:
             <= DRYRUN_PEAK_RTOL * d_peak,
             f"predicted peak {mem['peak_memory_in_bytes']} not within "
             f"{DRYRUN_PEAK_RTOL} of {d_peak}")
-    want = want_launches(flash=2 * cfg.n_layers)     # remat runs it twice
+    # remat runs the forward twice, the backward once
+    want = want_launches(flash=2 * cfg.n_layers, flash_bwd=cfg.n_layers)
     log(f"  launches {d_launches}, expected {want}; flash routes {d_routes}")
     require(d_launches == want, f"launch counts {d_launches} != {want}")
-    require(d_routes == {"wgmma": want["flash_attention"], "cuda_cores": 0},
-            f"the checked step's flash routes {d_routes}: want all on wgmma")
+    require_wgmma(d_routes, want, "the checked step")
     log(f"  against the same step with remat off, on the loader's first "
         f"batch: first moments {d_cmp['mu_rel_norm']!r} (worst leaf, "
         f"{d_cmp['mu_worst_leaf']}, relative norm; tolerance "
@@ -3239,6 +3438,35 @@ def main() -> int:
     p32 = run_tp_phases(device, gen, card, flash_rows, ssd_rows)
     run_tp_family_phases(device, gen, card, flash_rows, ssd_rows, p32)
 
+    log("[38] the flash backward (csrc/flash_attention_bwd.cu) against "
+        "plain_flash_attention_bwd: the sweep on both routes, the training "
+        "shapes in bf16, two calls bit-equal; then timed (as in phase 6)")
+    hyb_shape = (HYBRID_BATCH, hyb.n_heads, HYBRID_SEQ, hyb.resolved_head_dim)
+    tp_shape = (TP_TRAIN_BATCH, cfg.n_heads // TP_RANKS, SEQ,
+                cfg.resolved_head_dim)
+    bwd_shapes = [
+        (f"{cfg.arch_id} (Fig. 5 worker, phase 5)", main_shape, 0,
+         launches["flash_attention_bwd"]),
+        (f"{cfg.arch_id} (hier, ZeRO-3 and remat steps, phases 17, 29, 30)",
+         olmo_shape, 0, h_launches["flash_attention_bwd"]
+         + z_launches["flash_attention_bwd"]
+         + d_launches["flash_attention_bwd"]),
+        (f"{cfg.arch_id} (1x{TP_RANKS} rank, phases 32, 37)", tp_shape, 0,
+         p32["bwd_launches"] + p32["seq_bwd_launches"]),
+        (f"{hyb.arch_id} (not trained here)", hyb_shape, hyb.sliding_window,
+         0)]
+    t0 = time.perf_counter()
+    bwd_errs = check_flash_bwd(device, gen, [x[:3] for x in bwd_shapes])
+    bwd_rows = []
+    for name, shape, window, n in bwd_shapes:
+        t = time_flash_bwd(device, shape, gen, window=window)
+        bwd_rows.append(dict(model=name, shape=list(shape), window=window,
+                             launches=n, max_abs_err=bwd_errs[name][0],
+                             rel_norm_err=bwd_errs[name][1], **t))
+        log(f"  flash_attention_bwd at {name}: {bwd_rows[-1]}")
+        torch.cuda.empty_cache()
+    log(f"  phase 38 took {time.perf_counter() - t0:.1f} s ({card})")
+
     kernels = [
         dict(name="aggregate_shards", route="cuda",
              source="src/repro_torch/kernels/csrc/hier_agg.cu",
@@ -3271,6 +3499,18 @@ def main() -> int:
                  r["launches"] for r in ssd_rows),
              max_abs_err=ssd_err, max_abs_err_zamba2=hyb_ssd_err,
              shapes=ssd_rows, **times["ssd_scan"]),
+        dict(name="flash_attention_bwd", route="cuda",
+             variant=fa.flash_route(torch.bfloat16, main_shape[3]),
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/ops.py:72",
+             replaces_what="_flash_diff_bwd: the reference's backward is the "
+             "vjp of its jnp blockwise attention, no Pallas kernel",
+             launches=sum(r["launches"] for r in bwd_rows),
+             max_abs_err=bwd_rows[0]["max_abs_err"],
+             rel_norm_err=bwd_rows[0]["rel_norm_err"], shapes=bwd_rows,
+             **{k: bwd_rows[0][k] for k in ("ms", "call_ms", "plain_ms",
+                                            "library_ms", "bound_ms",
+                                            "bound_by")}),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -3,7 +3,8 @@ PyTorch version:
 
  - hier_agg:        shard mean-aggregation (the paper's shard aggregator)
                     and the fused aggregate-and-apply
- - flash_attention: online-softmax causal / sliding-window attention
+ - flash_attention: online-softmax causal / sliding-window attention and
+                    its backward (dq, dk, dv from the saved logsumexp)
  - ssd_scan:        the Mamba2 SSD chunked scan (forward)
 
 ``ops`` holds the padded public entry points, ``ref`` the plain oracles,

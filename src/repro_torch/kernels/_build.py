@@ -1,7 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
 Each ``csrc/*.cu`` file has a plain C interface; ``csrc/hopper.cuh`` holds
-the Hopper pieces the two tensor-core kernels share. ``load()`` compiles them
+the Hopper pieces the tensor-core kernels share. ``load()`` compiles them
 with ``nvcc`` for ``sm_90a`` (one process per source, all started
 together), links them into one shared library under ``build/`` at the repo
 root, and opens it with ``ctypes``. The library is named by a hash of the
@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("hier_agg.cu", "flash_attention.cu", "flash_attention_wgmma.cu",
-           "ssd_scan.cu", "ssd_scan_wgmma.cu")
+           "flash_attention_bwd.cu", "ssd_scan.cu", "ssd_scan_wgmma.cu")
 HEADERS = ("hopper.cuh",)  # included by the sources: part of the hash
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -106,6 +106,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.smlt_flash_attention_fwd_wgmma.argtypes = [
         p, p, p, p, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, p, p]
     lib.smlt_flash_attention_fwd_wgmma.restype = i32
+    for fn in (lib.smlt_flash_attention_fwd_lse,
+               lib.smlt_flash_attention_fwd_wgmma_lse):
+        fn.argtypes = [p, p, p, p, p, i32, i32, i32, i32, i32, i32, i32,
+                       ctypes.c_float, p, p]
+        fn.restype = i32
+    for fn in (lib.smlt_flash_attention_bwd,
+               lib.smlt_flash_attention_bwd_wgmma):
+        fn.argtypes = [p] * 11 + [i32] * 7 + [ctypes.c_float, p, p]
+        fn.restype = i32
     lib.smlt_wgmma_tile.argtypes = [i32, p, p, p, i32, p]
     lib.smlt_wgmma_tile.restype = i32
     lib.smlt_ssd_scan.argtypes = [p] * 8 + [i32] * 6 + [i64] * 4 + [i32, p]

@@ -12,7 +12,9 @@
 // this kernel's tile sizes); the output is acc / max(l, 1e-30). Keys at or
 // past seq_k are masked like any other. q, k, v and o are read and written
 // through their (b, h, s) strides with d contiguous, so transposed
-// (b, s, h, d) views need no copy.
+// (b, s, h, d) views need no copy. Given an lse buffer it also stores
+// each query's natural-log logsumexp, m + log(max(l, 1e-30)), for the
+// backward in flash_attention_bwd.cu.
 //
 // What bounds it on an H100: operations, 4*b*h*d*s^2/2 causal FLOPs
 // against the 67 TFLOP/s f32 rate of the CUDA cores. The f32 route serves
@@ -50,7 +52,8 @@ template <int D>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     Strides st, int n_heads, int seq_q, int seq_k,
+                     float* __restrict__ lse, Strides st, int n_heads,
+                     int seq_q, int seq_k,
                      int causal, int window, float scale) {
   constexpr int DP = D + 1;     // padded row stride of Qs / Ks
   constexpr int CPT = D / 16;   // output columns per thread
@@ -179,6 +182,9 @@ __global__ void __launch_bounds__(NT)
     const int qpos = q_start + ty * 4 + i;
     if (qpos >= seq_q) continue;
     const float denom = fmaxf(l_i[i], 1e-30f);
+    // the natural-log logsumexp of the scaled row (all 16 lanes agree)
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<long long>(bh) * seq_q + qpos] = m_i[i] + logf(denom);
     float* orow = o + bi * st.ob + hi * st.oh + qpos * st.os;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) orow[tx + 16 * c] = acc[i][c] / denom;
@@ -186,8 +192,8 @@ __global__ void __launch_bounds__(NT)
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int h, int seq_q, int seq_k, int causal, int window, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int h, int seq_q, int seq_k, int causal, int window, float scale,
            const Strides& st, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -197,26 +203,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid(b * h, (seq_q + BQ - 1) / BQ);
   flash_fwd_kernel<D><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), st, h, seq_q, seq_k,
-      causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, st, h, seq_q,
+      seq_k, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
-               int h, int seq_q, int seq_k, int d, int causal, int window,
-               float scale, const Strides& st, cudaStream_t s) {
+int dispatch_d(const void* q, const void* k, const void* v, void* o,
+               float* lse, int b, int h, int seq_q, int seq_k, int d,
+               int causal, int window, float scale, const Strides& st, cudaStream_t s) {
   switch (d) {
     case 32:
-      return launch<32>(q, k, v, o, b, h, seq_q, seq_k, causal, window,
+      return launch<32>(q, k, v, o, lse, b, h, seq_q, seq_k, causal, window,
                         scale, st, s);
     case 64:
-      return launch<64>(q, k, v, o, b, h, seq_q, seq_k, causal, window,
+      return launch<64>(q, k, v, o, lse, b, h, seq_q, seq_k, causal, window,
                         scale, st, s);
     case 112:  // zamba2-7b: 3584 / 32
-      return launch<112>(q, k, v, o, b, h, seq_q, seq_k, causal, window,
+      return launch<112>(q, k, v, o, lse, b, h, seq_q, seq_k, causal, window,
                          scale, st, s);
     case 128:
-      return launch<128>(q, k, v, o, b, h, seq_q, seq_k, causal, window,
+      return launch<128>(q, k, v, o, lse, b, h, seq_q, seq_k, causal, window,
                          scale, st, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -226,21 +232,38 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // q: (b, h, seq_q, d), k and v: (b, h, seq_k, d), o: (b, h, seq_q, d),
-// each with d contiguous, d in {32, 64, 112, 128}; strides: 12 element strides (b, h, s) of q, k, v
-// and o, in that order, all float32. Returns cudaGetLastError() after the
-// launch (0 on success).
-extern "C" int smlt_flash_attention_fwd(const void* q, const void* k,
-                                        const void* v, void* o, int b, int h,
-                                        int seq_q, int seq_k, int d,
-                                        int causal, int window, float scale,
-                                        const long long* strides,
-                                        void* stream) {
+// each with d contiguous, d in {32, 64, 112, 128}; strides: 12 element
+// strides (b, h, s) of q, k, v and o, in that order, all float32. lse:
+// null, or (b, h, seq_q) f32 contiguous for the natural-log logsumexp of
+// each query's scaled, masked scores (the backward's
+// P = exp(scale q.k - lse)). Returns cudaGetLastError() after the launch
+// (0 on success).
+extern "C" int smlt_flash_attention_fwd_lse(const void* q, const void* k,
+                                            const void* v, void* o,
+                                            float* lse, int b, int h,
+                                            int seq_q, int seq_k, int d,
+                                            int causal, int window,
+                                            float scale,
+                                            const long long* strides,
+                                            void* stream) {
   if (b < 1 || h < 1 || seq_q < 1 || seq_k < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long* x = strides;
   const Strides st{x[0], x[1], x[2], x[3], x[4],  x[5],
                    x[6], x[7], x[8], x[9], x[10], x[11]};
-  return dispatch_d(q, k, v, o, b, h, seq_q, seq_k, d, causal, window,
+  return dispatch_d(q, k, v, o, lse, b, h, seq_q, seq_k, d, causal, window,
                     scale, st, s);
+}
+
+// The same with no lse.
+extern "C" int smlt_flash_attention_fwd(const void* q, const void* k,
+                                        const void* v, void* o, int b, int h,
+                                        int seq_q, int seq_k, int d,
+                                        int causal, int window, float scale,
+                                        const long long* strides,
+                                        void* stream) {
+  return smlt_flash_attention_fwd_lse(q, k, v, o, nullptr, b, h, seq_q,
+                                      seq_k, d, causal, window, scale,
+                                      strides, stream);
 }

@@ -11,7 +11,10 @@
 // are -1e30 (not -inf); a K tile wholly above the causal diagonal or wholly
 // outside the window is skipped; keys at or past seq_k are masked; queries
 // past seq_q are not stored; the output is acc / max(l, 1e-30), rounded
-// once to bf16. The softmax runs in base 2: log2(e) is folded into the
+// once to bf16. Given an lse buffer it also stores each query's
+// natural-log logsumexp, (m + log2(max(l, 1e-30))) ln 2 from the base-2 m
+// and l, for the backward in flash_attention_bwd.cu. The softmax runs in
+// base 2: log2(e) is folded into the
 // score scale and exp2f replaces expf (exp(x) = 2^(x log2 e)); masked
 // scores stay -1e30, so a row with nothing visible yet still weighs its
 // masked keys uniformly, as the reference does. P is rounded to bf16 for
@@ -72,6 +75,7 @@ constexpr int N_CONSUMERS = 256;   // two warpgroups
 constexpr int N_THREADS = N_CONSUMERS + 128;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Shared-memory geometry for head dim D. A tile of R rows is stored as D /
 // CHUNK column chunks, each R rows of CHUNK bf16 (ROWB bytes), swizzled by
@@ -179,7 +183,7 @@ __global__ void __launch_bounds__(N_THREADS, 1)
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
                            __nv_bfloat16* __restrict__ o, OutStrides os,
-                           int n_heads, int seq_q, int seq_k, int head_dim,
+                           float* __restrict__ lse, int n_heads, int seq_q, int seq_k, int head_dim,
                            int causal, int window, float scale_log2) {
   using G = Geo<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -352,6 +356,11 @@ __global__ void __launch_bounds__(N_THREADS, 1)
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     denom[r] = fmaxf(l, 1e-30f);
+    // the natural-log logsumexp of the scaled row: m_i is in base 2
+    const int qpos = q_lo + r0 + 8 * r;
+    if (lse != nullptr && lane % 4 == 0 && qpos < seq_q)
+      lse[static_cast<long long>(bh) * seq_q + qpos] =
+          (m_i[r] + log2f(denom[r])) * LN2;
   }
   // generic writes into rows the async proxy (TMA, wgmma) used before
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -511,8 +520,8 @@ int make_map(CUtensorMap* map, const void* base, int b, int h, int s, int d,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int h, int seq_q, int seq_k, int d, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int h, int seq_q, int seq_k, int d, int causal, int window,
            float scale, const long long* st, cudaStream_t stream) {
   using G = Geo<D>;
   CUtensorMap mq, mk, mv;
@@ -535,7 +544,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid(b * h, (seq_q + BQ - 1) / BQ);
   const OutStrides os{st[9], st[10], st[11]};
   flash_fwd_wgmma_kernel<D><<<grid, N_THREADS, G::ALLOC, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), os, h, seq_q, seq_k, d,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), os, lse, h, seq_q, seq_k, d,
       causal, window, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
@@ -572,6 +581,28 @@ int launch_tile(int which, const void* a, const void* bt, void* out, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
+int dispatch_d(const void* q, const void* k, const void* v, void* o,
+               float* lse, int b, int h, int seq_q, int seq_k, int d,
+               int causal, int window, float scale, const long long* strides,
+               cudaStream_t s) {
+  if (b < 1 || h < 1 || seq_q < 1 || seq_k < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 32:
+      return launch<32>(q, k, v, o, lse, b, h, seq_q, seq_k, d, causal,
+                        window, scale, strides, s);
+    case 64:
+      return launch<64>(q, k, v, o, lse, b, h, seq_q, seq_k, d, causal,
+                        window, scale, strides, s);
+    case 112:  // the 128 instance, columns 112-127 zero-filled by TMA
+    case 128:
+      return launch<128>(q, k, v, o, lse, b, h, seq_q, seq_k, d, causal,
+                         window, scale, strides, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // q: (b, h, seq_q, d), k and v: (b, h, seq_k, d), o: (b, h, seq_q, d), all
@@ -587,23 +618,20 @@ extern "C" int smlt_flash_attention_fwd_wgmma(const void* q, const void* k,
                                               float scale,
                                               const long long* strides,
                                               void* stream) {
-  if (b < 1 || h < 1 || seq_q < 1 || seq_k < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32:
-      return launch<32>(q, k, v, o, b, h, seq_q, seq_k, d, causal, window,
-                        scale, strides, s);
-    case 64:
-      return launch<64>(q, k, v, o, b, h, seq_q, seq_k, d, causal, window,
-                        scale, strides, s);
-    case 112:  // the 128 instance, columns 112-127 zero-filled by TMA
-    case 128:
-      return launch<128>(q, k, v, o, b, h, seq_q, seq_k, d, causal, window,
-                         scale, strides, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch_d(q, k, v, o, nullptr, b, h, seq_q, seq_k, d, causal,
+                    window, scale, strides,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The same, also writing lse: (b, h, seq_q) f32 contiguous, the
+// natural-log logsumexp of each query's scaled, masked scores (the
+// backward's P = exp(scale q.k - lse)).
+extern "C" int smlt_flash_attention_fwd_wgmma_lse(
+    const void* q, const void* k, const void* v, void* o, float* lse, int b,
+    int h, int seq_q, int seq_k, int d, int causal, int window, float scale,
+    const long long* strides, void* stream) {
+  return dispatch_d(q, k, v, o, lse, b, h, seq_q, seq_k, d, causal, window,
+                    scale, strides, static_cast<cudaStream_t>(stream));
 }
 
 // One tile of either product, contiguous bf16 in, f32 out, BK = 128 keys,

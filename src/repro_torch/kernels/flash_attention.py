@@ -34,9 +34,19 @@ run, ``FlopCounterMode``) the forward goes through the custom op
 ``smlt::flash_attention_fwd``, whose fake version gives the kernel's
 output layout with no launch and whose formula, ``flash_flops``, counts
 the products of the tiles the route's kernel runs, on every device.
-``FlashAttention`` is the differentiable form: the kernel forward and, as
-in the reference (``ops.py:48-79``), a backward that is the gradient of
-the plain blockwise attention, recomputed.
+``FlashAttention`` is the differentiable form: the kernel forward, which
+also writes each query's logsumexp when a gradient is wanted, and the
+backward kernels of ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``,
+routed by dtype as the forward: dK / dV over key tiles, then dQ over query
+tiles, no atomics, so its bits repeat), in place of the reference's vjp of
+the blockwise attention (``ops.py:48-79``). Traced, the backward is the
+custom op ``smlt::flash_attention_bwd`` (FLOPs: ``flash_bwd_flops``).
+
+The logsumexp ``lse`` is one convention on both routes and in the plain
+version: f32 (b, h, sq), the natural log of the sum over a query's keys of
+exp(d^-0.5 q.k), masked scores -1e30 as in the forward; the backward
+recomputes P = exp(d^-0.5 q.k - lse). The tensor-core kernels work in base
+2 and convert on the way in and out.
 """
 from __future__ import annotations
 
@@ -50,37 +60,91 @@ from repro_torch.kernels import _build
 
 LAUNCHES = 0  # kernel launches of flash_attention (plain calls not counted)
 ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}  # the same launches by route
+BWD_LAUNCHES = 0  # launches of flash_attention_bwd (its three kernels: one)
+BWD_ROUTE_LAUNCHES = {"wgmma": 0, "cuda_cores": 0}
 
 HEAD_DIMS = (32, 64, 112, 128)
 WGMMA_BK = 128  # keys per tile of the tensor-core kernel (BK in its source)
 # (queries, keys) per tile of each route's kernel (BQ, BK in its source)
 ROUTE_TILES = {"wgmma": (128, WGMMA_BK), "cuda_cores": (64, 64)}
+# (queries, keys) per tile of each route's two backward kernels: dK / dV
+# (four products a tile pair) and dQ (three)
+BWD_TILES = {"wgmma": ((64, 128), (128, 64)),
+             "cuda_cores": ((64, 64), (64, 64))}
+# the backward's per-query scratch rows are padded to this many queries
+# (ROW_PAD in csrc/flash_attention_bwd.cu)
+BWD_ROW_PAD = 128
 NEG_INF = -1e30
+
+
+def _masked_scores(qb, kf, start: int, causal: bool, window: int):
+    """f32 scores of the scaled queries ``qb`` (b, h, n, d), the first at
+    position ``start``, against every key of ``kf``; -1e30 where masked."""
+    sk = kf.shape[2]
+    kpos = torch.arange(sk, device=qb.device)
+    qpos = start + torch.arange(qb.shape[2], device=qb.device)
+    s = qb @ kf.transpose(-1, -2)
+    mask = torch.ones(qb.shape[2], sk, dtype=torch.bool, device=qb.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    return torch.where(mask, s, NEG_INF)
 
 
 def plain_flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """The same function in plain PyTorch, 256 queries at a time:
     f32 scores of q * d^-0.5 against k, -1e30 where masked, then
     (exp(s - max) @ v) / max(sum exp(s - max), 1e-30). (b, h, s, d)."""
-    b, h, sq, d = q.shape
-    sk = k.shape[2]
+    d = q.shape[3]
     kf = k.float()
     vf = v.float()
-    kpos = torch.arange(sk, device=q.device)
     outs = []
-    for start in range(0, sq, 256):
+    for start in range(0, q.shape[2], 256):
         qb = q[:, :, start:start + 256].float() * d ** -0.5
-        qpos = start + torch.arange(qb.shape[2], device=q.device)
-        s = qb @ kf.transpose(-1, -2)
-        mask = torch.ones(qb.shape[2], sk, dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= qpos[:, None] >= kpos[None, :]
-        if window:
-            mask &= qpos[:, None] - kpos[None, :] < window
-        s = torch.where(mask, s, NEG_INF)
+        s = _masked_scores(qb, kf, start, causal, window)
         p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
         outs.append((p @ vf) / torch.clamp(p.sum(-1, keepdim=True), min=1e-30))
     return torch.cat(outs, dim=2).to(q.dtype)
+
+
+def plain_flash_lse(q, k, *, causal: bool = True, window: int = 0):
+    """The forward's logsumexp in plain PyTorch: f32 (b, h, sq), the natural
+    log of sum over keys of exp(s) for plain_flash_attention's masked,
+    scaled scores s."""
+    d = q.shape[3]
+    kf = k.float()
+    return torch.cat([torch.logsumexp(_masked_scores(
+        q[:, :, start:start + 256].float() * d ** -0.5, kf, start, causal,
+        window), dim=-1) for start in range(0, q.shape[2], 256)], dim=2)
+
+
+def plain_flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
+                              window: int = 0):
+    """The backward in plain f32 PyTorch, 256 queries at a time: with
+    P = exp(s - lse) for the masked, scaled scores s, D = rowsum(g o out),
+    dS = P o (g v^T - D): dq = d^-0.5 dS k, dk = d^-0.5 dS^T q, dv = P^T g.
+    Returns (dq, dk, dv) in the inputs' dtypes, (b, h, s, d)."""
+    d = q.shape[3]
+    scale = d ** -0.5
+    kf = k.float()
+    vf = v.float()
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    big_d = (g.float() * out.float()).sum(-1)
+    dqs = []
+    for start in range(0, q.shape[2], 256):
+        blk = slice(start, start + 256)
+        qb = q[:, :, blk].float() * scale
+        gb = g[:, :, blk].float()
+        p = torch.exp(_masked_scores(qb, kf, start, causal, window)
+                      - lse[:, :, blk, None])
+        dv += p.transpose(-1, -2) @ gb
+        ds = p * (gb @ vf.transpose(-1, -2) - big_d[:, :, blk, None])
+        dqs.append((ds @ kf) * scale)
+        dk += ds.transpose(-1, -2) @ qb
+    return (torch.cat(dqs, dim=2).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_route(dtype: torch.dtype, d: int) -> str:
@@ -122,13 +186,16 @@ def kernel_strides(x: torch.Tensor, route: str) -> list[int]:
     return strides
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    return_lse: bool = False):
     """q: (b, h, sq, d); k, v: (b, h, sk, d) -> (b, h, sq, d), a view of
-    (b, sq, h, d) memory. Forward only. A launch on a CUDA tensor (and on a
-    meta tensor, which the CPU tests stand in for one), the plain version
-    on a CPU tensor; when ``traced``, through the custom op
-    ``smlt::flash_attention_fwd``, whose fake version gives a fake tensor
-    the kernel's output with no launch."""
+    (b, sq, h, d) memory, and with ``return_lse`` also the f32 (b, h, sq)
+    logsumexp the backward reads. Forward only. A launch on a CUDA tensor
+    (and on a meta tensor, which the CPU tests stand in for one), the plain
+    version on a CPU tensor; when ``traced``, through the custom op
+    ``smlt::flash_attention_fwd`` (``smlt::flash_attention_fwd_lse``),
+    whose fake version gives a fake tensor the kernel's outputs with no
+    launch."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, d) or v.shape != k.shape:
@@ -138,6 +205,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes q, k, v of one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if return_lse:
+        if traced(q):
+            return torch.ops.smlt.flash_attention_fwd_lse(q, k, v, causal,
+                                                          window)
+        return _flash_lse_impl(q, k, v, causal, window)
     if traced(q):
         return torch.ops.smlt.flash_attention_fwd(q, k, v, causal, window)
     return _flash_impl(q, k, v, causal, window)
@@ -158,11 +230,31 @@ def _bshd_view(q):
     return q.new_empty(b, sq, h, d).transpose(1, 2)
 
 
+def _lse_like(q):
+    b, h, sq, _ = q.shape
+    return q.new_empty(b, h, sq, dtype=torch.float32)
+
+
 def _flash_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 causal: bool, window: int) -> torch.Tensor:
     """The op on real tensors: the plain version on the CPU, a launch on
     any other device."""
+    return _flash_run(q, k, v, causal, window, None)
+
+
+def _flash_lse_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, window: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op with the logsumexp, on real tensors."""
+    lse = _lse_like(q)
+    return _flash_run(q, k, v, causal, window, lse), lse
+
+
+def _flash_run(q, k, v, causal: bool, window: int, lse):
+    """The output; and into ``lse``, unless None, the logsumexp."""
     if q.device.type == "cpu":
+        if lse is not None:
+            lse.copy_(plain_flash_lse(q, k, causal=causal, window=window))
         return _bshd_view(q).copy_(plain_flash_attention(
             q, k, v, causal=causal, window=window))
     b, h, sq, d = q.shape
@@ -176,11 +268,17 @@ def _flash_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     st = (ctypes.c_longlong * 12)(*strides)
     with torch.cuda.device(q.device):        # the launch's current device
         stream = torch.cuda.current_stream().cuda_stream
-        fn = (lib.smlt_flash_attention_fwd_wgmma if route == "wgmma"
-              else lib.smlt_flash_attention_fwd)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                 h, sq, sk, d, int(causal), int(window), d ** -0.5, st,
-                 stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        args = (b, h, sq, sk, d, int(causal), int(window), d ** -0.5, st,
+                stream)
+        if lse is None:
+            fn = (lib.smlt_flash_attention_fwd_wgmma if route == "wgmma"
+                  else lib.smlt_flash_attention_fwd)
+            err = fn(*ptrs, *args)
+        else:
+            fn = (lib.smlt_flash_attention_fwd_wgmma_lse if route == "wgmma"
+                  else lib.smlt_flash_attention_fwd_lse)
+            err = fn(*ptrs, lse.data_ptr(), *args)
     _build.check(err, f"flash_attention ({route})")
     LAUNCHES += 1
     ROUTE_LAUNCHES[route] += 1
@@ -189,12 +287,20 @@ def _flash_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 _flash_fwd = torch.library.custom_op("smlt::flash_attention_fwd",
                                      _flash_impl, mutates_args=())
+_flash_fwd_lse = torch.library.custom_op("smlt::flash_attention_fwd_lse",
+                                         _flash_lse_impl, mutates_args=())
 
 
 @_flash_fwd.register_fake
 def _(q, k, v, causal, window):
     flash_route(q.dtype, q.shape[3])       # what the card's kernels take
     return _bshd_view(q)
+
+
+@_flash_fwd_lse.register_fake
+def _(q, k, v, causal, window):
+    flash_route(q.dtype, q.shape[3])
+    return _bshd_view(q), _lse_like(q)
 
 
 def flash_tiles_run(sq: int, sk: int, bq: int, bk: int, causal: bool,
@@ -211,7 +317,8 @@ def flash_tiles_run(sq: int, sk: int, bq: int, bk: int, causal: bool,
     return total
 
 
-@register_flop_formula(torch.ops.smlt.flash_attention_fwd, get_raw=True)
+@register_flop_formula([torch.ops.smlt.flash_attention_fwd,
+                       torch.ops.smlt.flash_attention_fwd_lse], get_raw=True)
 def flash_flops(q, k, v, causal, window, *args, **kwargs) -> int:
     """FLOPs of the kernel the route of q's dtype runs: Q K^T and P V,
     2 * bq * bk * d each, over the tiles it runs (``flash_tiles_run``)."""
@@ -245,31 +352,129 @@ def wgmma_tile(a, b, which: str):
     return out
 
 
-def _blockwise_bhsd(q, k, v, causal: bool, window: int):
-    """The model's blockwise attention in (b, h, s, d) layout."""
-    from repro_torch.models.layers import blockwise_attention
-    out = blockwise_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal,
-                              sliding_window=window)
-    return out.transpose(1, 2)
+def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
+                        window: int = 0):
+    """The gradients (dq, dk, dv) of flash_attention's output ``out``
+    against ``g`` (dO), from q, k, v, ``out`` and the forward's ``lse``;
+    each a (b, h, s, d) view of (b, s, h, d) memory in the inputs' dtype.
+    A launch on a CUDA (or meta) tensor, the plain version on a CPU tensor;
+    traced, the custom op ``smlt::flash_attention_bwd``. The kernels read
+    q, k, v, ``out`` and ``g`` through their strides (d contiguous; on the
+    tensor-core route q, k, v and ``g`` through TMA) and ``lse`` contiguous:
+    a layout they cannot read raises, nothing is copied."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if (k.shape != (b, h, sk, d) or v.shape != k.shape
+            or out.shape != q.shape or g.shape != q.shape):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, out {tuple(out.shape)}, g "
+                         f"{tuple(g.shape)}: want q, out, g (b, h, sq, d) "
+                         "and k, v (b, h, sk, d)")
+    if any(x.dtype != q.dtype for x in (k, v, out, g)):
+        raise TypeError("flash_attention_bwd takes q, k, v, out, g of one "
+                        "dtype")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want "
+                         f"({b}, {h}, {sq}) float32")
+    if traced(q):
+        return torch.ops.smlt.flash_attention_bwd(q, k, v, out, lse, g,
+                                                  causal, window)
+    return _flash_bwd_impl(q, k, v, out, lse, g, causal, window)
+
+
+def _bwd_scratch(q):
+    """The backward kernels' per-query rows of lse and D, padded to
+    BWD_ROW_PAD queries: (2, b * h * padded) f32."""
+    b, h, sq, _ = q.shape
+    pad = -(-sq // BWD_ROW_PAD) * BWD_ROW_PAD
+    return q.new_empty(2, b * h * pad, dtype=torch.float32)
+
+
+def _flash_bwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                    causal: bool, window: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward on real tensors: the plain version on the CPU, the
+    route's kernels on any other device."""
+    if q.device.type == "cpu":
+        grads = plain_flash_attention_bwd(q, k, v, out, lse, g,
+                                          causal=causal, window=window)
+        return tuple(_bshd_view(x).copy_(dx) for x, dx in zip((q, k, v),
+                                                               grads))
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    route = flash_route(q.dtype, d)
+    if not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous, got strides "
+                         f"{lse.stride()}")
+    strides = [s for x in (q, k, v) for s in kernel_strides(x, route)]
+    strides += kernel_strides(out, "cuda_cores")
+    strides += kernel_strides(g, route)
+    global BWD_LAUNCHES
+    lib = _build.load()
+    grads = (_bshd_view(q), _bshd_view(k), _bshd_view(v))
+    strides += [s for x in grads for s in kernel_strides(x, "cuda_cores")]
+    rows = _bwd_scratch(q)
+    st = (ctypes.c_longlong * 24)(*strides)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        fn = (lib.smlt_flash_attention_bwd_wgmma if route == "wgmma"
+              else lib.smlt_flash_attention_bwd)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 g.data_ptr(), lse.data_ptr(),
+                 *(x.data_ptr() for x in grads), rows[0].data_ptr(),
+                 rows[1].data_ptr(), b, h, sq, sk, d, int(causal),
+                 int(window), d ** -0.5, st, stream)
+    _build.check(err, f"flash_attention_bwd ({route})")
+    BWD_LAUNCHES += 1
+    BWD_ROUTE_LAUNCHES[route] += 1
+    return grads
+
+
+_flash_bwd = torch.library.custom_op("smlt::flash_attention_bwd",
+                                     _flash_bwd_impl, mutates_args=())
+
+
+@_flash_bwd.register_fake
+def _(q, k, v, out, lse, g, causal, window):
+    flash_route(q.dtype, q.shape[3])
+    _bwd_scratch(q)                        # what the wrapper allocates too
+    return _bshd_view(q), _bshd_view(k), _bshd_view(v)
+
+
+@register_flop_formula(torch.ops.smlt.flash_attention_bwd, get_raw=True)
+def flash_bwd_flops(q, k, v, out, lse, g, causal, window, *args,
+                    **kwargs) -> int:
+    """FLOPs of the backward kernels the route of q's dtype runs, over the
+    tiles each runs (``flash_tiles_run`` with ``BWD_TILES``): dK / dV's
+    S, dP, dV and dK and dQ's S, dP and dQ, 2 * bq * bk * d each."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    (bq1, bk1), (bq2, bk2) = BWD_TILES[flash_route(q.dtype, d)]
+    return 2 * b * h * d * (
+        4 * bq1 * bk1 * flash_tiles_run(sq, sk, bq1, bk1, causal, window)
+        + 3 * bq2 * bk2 * flash_tiles_run(sq, sk, bq2, bk2, causal, window))
 
 
 class FlashAttention(torch.autograd.Function):
-    """Kernel forward; the backward recomputes the plain blockwise
-    attention under autograd and returns its gradients (O(block x s)
-    memory; a backward kernel is later work)."""
+    """Kernel forward, kernel backward. The forward writes the logsumexp
+    only when an input wants a gradient; the backward reads it with q, k,
+    v and the output."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        return flash_attention(q, k, v, causal=causal, window=window)
+        if not any(ctx.needs_input_grad[:3]):
+            return flash_attention(q, k, v, causal=causal, window=window)
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
-            out = _blockwise_bhsd(*xs, ctx.causal, ctx.window)
-            dq, dk, dv = torch.autograd.grad(out, xs, g)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g,
+                                         causal=ctx.causal,
+                                         window=ctx.window)
         return dq, dk, dv, None, None

@@ -37,7 +37,9 @@ def aggregate_and_apply(shards, param, *, lr: float, block: int = 8 * 1024):
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     block_q: int = 256, block_k: int = 256):
     """(b, h, s, d) attention; pads seq to block multiples. Differentiable:
-    kernel forward + blockwise backward (``FlashAttention``)."""
+    kernel forward + kernel backward (``FlashAttention``: the forward saves
+    its logsumexp when an input wants a gradient; ``flash_attention_bwd``
+    computes the reference's vjp, ``ops.py:48-79``, with kernels)."""
     sq, sk = q.shape[2], k.shape[2]
     block_q = min(block_q, max(16, sq))
     block_k = min(block_k, max(16, sk))

@@ -464,3 +464,65 @@ def test_ssd_wgmma_refuses_what_it_cannot_take(gen):
     got = ssd.ssd_scan(x, dt, A, Bw, C, D, chunk=64, route="cuda_cores")
     _check_ssd(got, ssd.plain_ssd_scan(x, dt, A, Bw, C, D, 64),
                torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the flash backward: dK / dV over key tiles, dQ over query tiles
+# ---------------------------------------------------------------------------
+
+# ||got - want|| / ||want|| of each bf16 gradient against the plain
+# backward: P and dS are rounded to bf16 for the products, where the
+# forward rounds only P
+BWD_BF16_REL_NORM = 1e-2
+
+
+def _bwd_case(gen, b, h, sq, sk, d, dtype, causal, window):
+    """Inputs of one backward on (b, s, h, d) memory, as the model hands
+    them: q, k, v, the kernel forward's output and lse, and dO in the
+    output's layout."""
+    q = _bshd(gen, b, sq, h, d, dtype)
+    k = _bshd(gen, b, sk, h, d, dtype)
+    v = _bshd(gen, b, sk, h, d, dtype)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    g = _bshd(gen, b, sq, h, d, dtype)
+    return q, k, v, out, lse, g
+
+
+@pytest.mark.parametrize("d", [32, 64, 112, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq_q,seq_k,causal,window",
+                         [(256, 256, True, 0), (300, 300, True, 100),
+                          (192, 192, True, 16), (100, 100, False, 0),
+                          (3, 70, True, 0)])
+def test_flash_bwd_kernel_matches_plain(gen, d, dtype, seq_q, seq_k,
+                                        causal, window):
+    case = _bwd_case(gen, 2, 3, seq_q, seq_k, d, dtype, causal, window)
+    q, k, v, out, lse = case[:5]
+    torch.testing.assert_close(
+        lse, fa.plain_flash_lse(q, k, causal=causal, window=window),
+        rtol=1e-5, atol=1e-5)
+    route = fa.flash_route(dtype, d)
+    before = dict(fa.BWD_ROUTE_LAUNCHES)
+    got = fa.flash_attention_bwd(*case, causal=causal, window=window)
+    assert fa.BWD_ROUTE_LAUNCHES[route] == before[route] + 1
+    want = fa.plain_flash_attention_bwd(*case, causal=causal, window=window)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype
+        assert a.transpose(1, 2).is_contiguous()
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(a.float(), w.float(), rtol=2e-2,
+                                       atol=2e-2)
+            assert _rel_norm_err(a, w) < BWD_BF16_REL_NORM
+        else:
+            torch.testing.assert_close(a, w, rtol=5e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_is_deterministic(gen, dtype):
+    case = _bwd_case(gen, 2, 4, 512, 512, 128, dtype, True, 0)
+    first = fa.flash_attention_bwd(*case, causal=True)
+    second = fa.flash_attention_bwd(*case, causal=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+

@@ -42,6 +42,7 @@ sys.path.insert(0, str(ROOT))
 FAMILIES = [  # first match wins
     ("collective (NCCL)", r"nccl"),
     ("flash kernel (ours)", r"flash_fwd"),    # either route's kernel
+    ("flash backward kernels (ours)", r"bwd_(prep|dkdv|dq)"),
     ("SSD kernel (ours)", r"ssd_scan(_wgmma)?_kernel"),  # either route
     ("aggregation kernel (ours)", r"agg_kernel"),
     ("matmul bf16 (cuBLAS)", r"nvjet|bf16|h_bz"),
