@@ -1,0 +1,9 @@
+"""Device milliseconds of the forward a training step: the program's
+``autograd.forward`` spans (``core/tree.py::value_and_grad``; the pool's
+four workers summed; the loss inside), over the profiled units
+(``perfbench/program_spans.py``)."""
+from perfbench import program_spans
+
+
+def read(run):
+    return program_spans.per_unit_ms(run, ["autograd.forward"], "train")

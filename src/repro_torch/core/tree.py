@@ -12,6 +12,8 @@ from typing import Any, Callable, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.spans import span
+
 
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on. Asking for CUDA on a machine
@@ -88,13 +90,21 @@ def to_numpy(tree):
 def value_and_grad(fn: Callable) -> Callable:
     """``fn(params, *args) -> scalar`` becomes ``f(params, *args) ->
     (value, grads)``, grads a tree like ``params`` (``jax.value_and_grad``),
-    from one forward. The leaves are aliased, not copied."""
+    from one forward. The leaves are aliased, not copied.
+
+    The forward and the backward are the spans ``autograd.forward`` and
+    ``autograd.backward`` (``core/spans.py``). Whatever ``fn`` runs inside
+    them stays inside them: the loss, ZeRO-3's gathers of each layer's
+    parameters and the tensor-parallel collectives of the model, with
+    their backward."""
     def f(params, *args):
         with torch.enable_grad():
             p = tree_map(lambda x: x.detach().requires_grad_(True), params)
             ls = leaves(p)
-            value = fn(p, *args)
-            gs = torch.autograd.grad(value, ls, allow_unused=True)
+            with span("autograd.forward"):
+                value = fn(p, *args)
+            with span("autograd.backward"):
+                gs = torch.autograd.grad(value, ls, allow_unused=True)
         return value.detach(), unflatten(
             params, [torch.zeros_like(x) if g is None else g
                      for x, g in zip(ls, gs)])

@@ -78,6 +78,7 @@ import torch.distributed as dist
 
 from repro_torch.core import tree as T
 from repro_torch.core.hier_sync import all_gather, all_reduce, reduce_scatter
+from repro_torch.core.spans import span
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import (cache_specs, gather_model_part,
                                               is_stacked, model_part,
@@ -348,22 +349,29 @@ class TrainStep(_Step):
                 self.model_params(p), cfg, b))(params, batch)
 
     def __call__(self, params, opt_state: AdamWState, batch):
+        """The spans (``core/spans.py``): ``autograd.forward`` and
+        ``autograd.backward`` in ``loss_and_grads``; the sync of the
+        gradient, each leaf scattered or all-reduced and divided, is
+        ``exchange.reduce_scatter``; ``adamw.update``; the gather of the
+        updated parts and the loss's all-reduce, ``exchange.all_gather``."""
         loss, grads = self.loss_and_grads(params, batch)
         gl = T.leaves(grads)
-        for i, (z, s) in enumerate(zip(self.fsdp, self.shards)):
-            if z is not None:       # summed into this part by the gathers
-                gl[i] = gl[i] / self.n_data
-            elif s is None:
-                gl[i] = all_reduce(gl[i], self.group) / self.n_data
-            else:
-                gl[i] = s.scatter(gl[i]) / self.n_data
+        with span("exchange.reduce_scatter"):
+            for i, (z, s) in enumerate(zip(self.fsdp, self.shards)):
+                if z is not None:   # summed into this part by the gathers
+                    gl[i] = gl[i] / self.n_data
+                elif s is None:
+                    gl[i] = all_reduce(gl[i], self.group) / self.n_data
+                else:
+                    gl[i] = s.scatter(gl[i]) / self.n_data
         new_parts, opt_state = self.optimizer.update(
             T.unflatten(params, gl), opt_state, self._held_parts(params),
             sharded=T.unflatten(params, self._clip_groups()))
         del gl
-        new = [x if s is None else s.gather(x)
-               for x, s in zip(T.leaves(new_parts), self.shards)]
-        all_reduce(loss, self.group)
+        with span("exchange.all_gather"):
+            new = [x if s is None else s.gather(x)
+                   for x, s in zip(T.leaves(new_parts), self.shards)]
+            all_reduce(loss, self.group)
         return T.unflatten(params, new), opt_state, loss / self.n_data
 
 

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.hier_sync import all_reduce
+from repro_torch.core.spans import span
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.base import ModelConfig
 
@@ -622,7 +623,13 @@ def _label_count(valid):
 
 
 def cross_entropy(logits, labels, cfg: ModelConfig):
-    """Mean next-token CE; masks vocab-padding columns and label == -1."""
+    """Mean next-token CE; masks vocab-padding columns and label == -1.
+    Either branch is the span ``loss.cross_entropy`` (``core/spans.py``)."""
+    with span("loss.cross_entropy"):
+        return _cross_entropy(logits, labels, cfg)
+
+
+def _cross_entropy(logits, labels, cfg: ModelConfig):
     vp = logits.shape[-1]
     if tp.size() > 1 and vp != cfg.vocab_padded:
         return _vocab_parallel_cross_entropy(logits, labels, cfg)

@@ -17,6 +17,7 @@ import torch.distributed as dist
 
 from repro_torch.core import tree as T
 from repro_torch.core.hier_sync import all_reduce
+from repro_torch.core.spans import span
 
 
 @dataclasses.dataclass
@@ -51,7 +52,12 @@ class AdamW:
         is split over several), and None for a replicated leaf. The clip's
         sum of squares of the split leaves is summed over each group, so
         every rank clips by the global norm; the replicated leaves are
-        counted once."""
+        counted once. The whole call, clip included, is the span
+        ``adamw.update`` (``core/spans.py``)."""
+        with span("adamw.update"):
+            return self._update(grads, state, params, sharded)
+
+    def _update(self, grads, state: AdamWState, params, sharded):
         step = state.step + 1
         scale = None
         if self.grad_clip:

@@ -307,7 +307,6 @@ class ContentionDomain:
         self._engines: List["EventEngine"] = []
         self._groups: Dict[int, List["EventEngine"]] = {}
         self._running = False
-        self.dispatched = 0     # queue events executed (profiling counter)
         # union of time *any* engine's sync transfers are outstanding: the
         # honest keep-alive window for one param store shared across jobs
         # (per-engine sync_s sums would double-bill the overlap).
@@ -390,28 +389,23 @@ class ContentionDomain:
             pop = q.pop
             for eng in list(self._engines):
                 self._launch(eng)
-            dispatched = 0
             heappop = heapq.heappop
-            try:
-                while q._size:
-                    # inline CalendarQueue.pop fast path: the head of the
-                    # current bucket is due within its year — the full
-                    # pop() handles scans, shrink hysteresis and jumps
-                    b = q._buckets[q._cur_abs % q._nb]
-                    if b and b[0][0] < (q._cur_abs + 1) * q._width:
-                        q._size -= 1
-                        t, _, fn, arg = heappop(b)
-                    else:
-                        t, _, fn, arg = pop()
-                    if t > self.now:
-                        self.now = t
-                    dispatched += 1
-                    if arg is None:
-                        fn()
-                    else:
-                        fn(arg)
-            finally:
-                self.dispatched += dispatched
+            while q._size:
+                # inline CalendarQueue.pop fast path: the head of the
+                # current bucket is due within its year — the full
+                # pop() handles scans, shrink hysteresis and jumps
+                b = q._buckets[q._cur_abs % q._nb]
+                if b and b[0][0] < (q._cur_abs + 1) * q._width:
+                    q._size -= 1
+                    t, _, fn, arg = heappop(b)
+                else:
+                    t, _, fn, arg = pop()
+                if t > self.now:
+                    self.now = t
+                if arg is None:
+                    fn()
+                else:
+                    fn(arg)
         finally:
             self._running = False
         for eng in self._engines:

@@ -28,6 +28,7 @@ from repro_torch.core import tree as T
 from repro_torch.core.comm import (CommLike, CommPlan, build_plan,
                                    overlap_iteration_time, plan_times)
 from repro_torch.core.rng import base_stream
+from repro_torch.core.spans import span
 from repro_torch.serverless.backends import BackendLike, resolve_backend
 from repro_torch.serverless.platform import FleetSpec, fn_gflops, fn_net_gbps
 from repro_torch.serverless.stores import ObjectStore, ParamStore
@@ -313,7 +314,8 @@ class LocalWorkerPool:
         return T.tree_map(lambda s: s / total, acc)
 
     def _worker_grads(self, params, global_batch):
-        """Each worker's flat gradient on its batch slice (stale-aware)."""
+        """Each worker's flat gradient on its batch slice (stale-aware);
+        each flattening is an ``exchange.flatten`` span."""
         n = self.n
         flats, g_like = [], None
         for w in range(n):
@@ -321,34 +323,41 @@ class LocalWorkerPool:
                 lambda x: x[w * (x.shape[0] // n):(w + 1) * (x.shape[0] // n)],
                 global_batch)
             g = self._slice_grad(self._worker_params(w, params), sl)
-            flats.append(flatten_grads(g))
+            with span("exchange.flatten"):
+                flats.append(flatten_grads(g))
             g_like = g
         return flats, g_like
 
     def step(self, params, global_batch) -> Dict:
-        """Returns the aggregated (mean) gradient tree."""
-        if self.plan.ratio < 1.0:
-            mean_flat, g_like = self._step_compressed(params, global_batch)
-        elif self.plan.strategy == "ps":
-            mean_flat, g_like = self._step_ps(params, global_batch)
-        elif self.plan.strategy == "hier":
-            mean_flat, g_like = self._step_hier(params, global_batch)
-        else:
-            mean_flat, g_like = self._step_scatter_reduce(params,
-                                                          global_batch)
-        self._iter += 1
-        return unflatten_grads(mean_flat, g_like)
+        """Returns the aggregated (mean) gradient tree. Everything after
+        the workers' flat gradients, through the tree of their mean, is
+        the ``exchange.aggregate`` span."""
+        flats, g_like = self._worker_grads(params, global_batch)
+        with span("exchange.aggregate"):
+            if self.plan.ratio < 1.0:
+                mean_flat = self._step_compressed(flats)
+            elif self.plan.strategy == "ps":
+                mean_flat = self._step_ps(flats)
+            elif self.plan.strategy == "hier":
+                mean_flat = self._step_hier(flats)
+            else:
+                mean_flat = self._step_scatter_reduce(flats)
+            del flats
+            self._iter += 1
+            return unflatten_grads(mean_flat, g_like)
 
     # -- strategy numerics ---------------------------------------------------
-    def _step_scatter_reduce(self, params, global_batch):
+    # Each takes the workers' flat gradients and returns their mean, flat.
+    # Where it hands them on, it empties the list, so that a gradient's
+    # memory goes as soon as nothing needs it.
+    def _step_scatter_reduce(self, flats):
         n = self.n
-        flats, g_like = self._worker_grads(params, global_batch)
         flat_size = flats[0].numel()
         # (1) each worker shards its gradient and uploads the shards
         for w, flat in enumerate(flats):
             for j, s in enumerate(make_shards(flat, n)):
                 self.store.put(f"shard/{w}/{j}", s, nbytes=s.nbytes)
-        del flats
+        flats.clear()
         # (2) worker j aggregates shard j from all workers (mean), re-uploads
         for j in range(n):
             stacked = torch.stack([self.store.get(f"shard/{w}/{j}")
@@ -367,27 +376,25 @@ class LocalWorkerPool:
         agg = [self.store.get(f"aggr/{j}") for j in range(n)]
         for j in range(n):
             self.store.drop(f"aggr/{j}")
-        return join_shards(agg, flat_size), g_like
+        return join_shards(agg, flat_size)
 
-    def _step_ps(self, params, global_batch):
+    def _step_ps(self, flats):
         n = self.n
-        flats, g_like = self._worker_grads(params, global_batch)
         for w, flat in enumerate(flats):
             self.store.put(f"grad/{w}", flat, nbytes=flat.nbytes)
         acc = torch.zeros_like(flats[0])
         for w in range(n):
             acc += self.store.get(f"grad/{w}", nbytes=flats[w].nbytes)
             self.store.drop(f"grad/{w}")
-        return acc / n, g_like
+        return acc / n
 
-    def _step_hier(self, params, global_batch):
+    def _step_hier(self, flats):
         """Tree aggregation: partial sums reduce level by level through
         the store; the root's sum / n is the exact global mean."""
         n, b = self.n, max(self.plan.branching or 4, 2)
-        flats, g_like = self._worker_grads(params, global_batch)
         nbytes = flats[0].nbytes
         partials = list(flats)                   # level-0 partial sums
-        del flats
+        flats.clear()
         lvl = 0
         while len(partials) > 1:
             lvl += 1
@@ -406,15 +413,14 @@ class LocalWorkerPool:
         self.store.put("hier/root", root, nbytes=nbytes)
         out = self.store.get("hier/root", nbytes=nbytes) / n
         self.store.drop("hier/root")
-        return out, g_like
+        return out
 
-    def _step_compressed(self, params, global_batch):
+    def _step_compressed(self, flats):
         """Top-k + error feedback: each worker uploads only its k largest
         (corrected) entries; the aggregator sums sparse contributions."""
         from repro_torch.core.compression import (ErrorFeedback,
                                                   compressed_bytes)
         n, ratio = self.n, self.plan.ratio
-        flats, g_like = self._worker_grads(params, global_batch)
         size = flats[0].numel()
         for w, flat in enumerate(flats):
             if w not in self._ef:
@@ -428,4 +434,4 @@ class LocalWorkerPool:
                 f"sparse/{w}", nbytes=compressed_bytes(size, ratio))
             self.store.drop(f"sparse/{w}")
             acc[idx.long()] += vals
-        return acc / n, g_like
+        return acc / n

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import tree as T
+from repro_torch.core.spans import span
 from repro_torch.models import registry
 from repro_torch.models.base import ModelConfig
 
@@ -57,7 +58,9 @@ class ServingEngine:
     drawn by ``registry.init(seed, cfg, device)``.
 
     ``last_stats`` holds the last batch's prefill and decode seconds (host
-    clock, up to a device synchronise on CUDA)."""
+    clock, up to a device synchronise on CUDA). The prefill, through its
+    first token, is the span ``serve.prefill``, and each decode step the
+    span ``serve.decode_step`` (``core/spans.py``)."""
 
     def __init__(self, cfg: ModelConfig, params=None, seed: int = 0,
                  device="cuda"):
@@ -90,16 +93,18 @@ class ServingEngine:
         batch.update(modality_stubs(cfg, len(requests), self.device))
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = registry.prefill(self.params, cfg, batch,
-                                         max_seq=plen + gen)
-        tok = torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1)
+        with span("serve.prefill"):
+            logits, cache = registry.prefill(self.params, cfg, batch,
+                                             max_seq=plen + gen)
+            tok = torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1)
         self._sync()
         t1 = time.perf_counter()
         out = [tok]
         for t in range(gen - 1):
-            logits, cache = registry.decode_step(self.params, cfg, cache,
-                                                 plen + t, tok)
-            tok = torch.argmax(logits[:, :, :cfg.vocab_size], dim=-1)
+            with span("serve.decode_step"):
+                logits, cache = registry.decode_step(self.params, cfg, cache,
+                                                     plen + t, tok)
+                tok = torch.argmax(logits[:, :, :cfg.vocab_size], dim=-1)
             out.append(tok)
         gen_toks = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
         self.last_stats = dict(batch=len(requests), prompt_len=plen,
