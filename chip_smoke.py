@@ -257,6 +257,18 @@ non-zero before the result lines:
      phase 6 beside its plain version, the library's flash backward and
      its bound. Phases 30, 32 and 37 also check the backward's launches
      exactly (16 under remat against 32 forwards; 16 x 3 a rank).
+ 39. AdamW's kernels (csrc/adamw.cu) at olmo-1b's tree with the tied head
+     (8 leaves, the 16 layers stacked, bf16 parameters and gradients, f32
+     moments): every leaf's update against plain_adamw_update (new
+     parameters, m and v bit-equal) and its sum of squares against
+     plain_sum_squares (1e-6 relative, two calls bit-equal), then the
+     whole tree's update and sum of squares timed as in phase 6 beside
+     the plain versions, the library's multi-tensor kernels
+     (torch._fused_adamw_ in f32, torch._foreach_norm; timed only) and the
+     byte bound (22 + 2 bytes a parameter), and one AdamW.update over the
+     tree: one call of each kernel a leaf. The training phases (5, 17, 24,
+     29, 30, 32, 37, 37b) count both kernels' calls in their launch checks:
+     steps times leaves.
 
 The second-to-last line is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero without.
@@ -889,6 +901,7 @@ def check_ssm_wiring_bf16(cfg, device, batch_size: int, seq: int):
 
 
 def kernel_counts():
+    from repro_torch.kernels import adamw
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hier_agg
     from repro_torch.kernels import ssd_scan as ssd
@@ -896,7 +909,9 @@ def kernel_counts():
             "aggregate_and_apply": hier_agg.APPLY_LAUNCHES,
             "flash_attention": fa.LAUNCHES,
             "flash_attention_bwd": fa.BWD_LAUNCHES,
-            "ssd_scan": ssd.LAUNCHES}
+            "ssd_scan": ssd.LAUNCHES,
+            "adamw_update": adamw.LAUNCHES,
+            "sum_squares": adamw.SUMSQ_LAUNCHES}
 
 
 def flash_routes():
@@ -914,11 +929,13 @@ def require_wgmma(routes: dict, want: dict, what: str):
 
 
 def zero_counts():
+    from repro_torch.kernels import adamw
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hier_agg
     from repro_torch.kernels import ssd_scan as ssd
     hier_agg.LAUNCHES = hier_agg.APPLY_LAUNCHES = 0
     fa.LAUNCHES = fa.BWD_LAUNCHES = ssd.LAUNCHES = 0
+    adamw.LAUNCHES = adamw.SUMSQ_LAUNCHES = 0
     for routes in (fa.ROUTE_LAUNCHES, fa.BWD_ROUTE_LAUNCHES,
                    ssd.ROUTE_LAUNCHES):
         for route in routes:
@@ -1187,10 +1204,22 @@ def modality_inputs(cfg, batch_size: int, seq: int, device, seed: int = 0):
             for k, t in batch_extras(cfg, batch_size, seq).items()}
 
 
-def want_launches(flash: int = 0, ssd: int = 0, flash_bwd: int = 0) -> dict:
+def want_launches(flash: int = 0, ssd: int = 0, flash_bwd: int = 0,
+                  adamw: int = 0) -> dict:
+    """The counts of kernel_counts(); ``adamw`` is the AdamW leaf updates
+    on the card (steps times leaves), each one call of the update and one
+    of the sum of squares."""
     return {"aggregate_shards": 0, "aggregate_and_apply": 0,
             "flash_attention": flash, "flash_attention_bwd": flash_bwd,
-            "ssd_scan": ssd}
+            "ssd_scan": ssd, "adamw_update": adamw, "sum_squares": adamw}
+
+
+def n_leaves(cfg) -> int:
+    """The leaves of ``cfg``'s parameter tree: AdamW.update's kernel calls
+    of each kind a step, on a whole tree or a rank's parts of it."""
+    from repro_torch.core import tree as T
+    from repro_torch.models import registry
+    return len(T.leaves(registry.init(0, cfg, "meta")))
 
 
 @contextlib.contextmanager
@@ -1758,13 +1787,16 @@ def run_projection(cfg, seq: int, batch_size: int, steps: int):
 def run_quickstart(device):
     """Phase 24: the port's quickstart on the card; returns (the
     scheduler's RunResult, the kernel's max abs error, launches, s)."""
+    from repro_torch.configs import ARCHS, reduced
     from repro_torch.examples import quickstart
     zero_counts()
     t0 = time.perf_counter()
     losses, res, err = quickstart.main(["--device", str(device)])
     seconds = time.perf_counter() - t0
     launches = kernel_counts()
-    want = dict(want_launches(), aggregate_shards=1)
+    # quickstart.real_training: 40 steps of reduced olmo-1b through train()
+    want = dict(want_launches(
+        adamw=40 * n_leaves(reduced(ARCHS["olmo-1b"]))), aggregate_shards=1)
     log(f"  losses {losses[0]!r} -> {losses[-1]!r}; launches {launches}, "
         f"expected {want}")
     require(launches == want, f"launch counts {launches} != {want}")
@@ -2374,9 +2406,10 @@ def check_seq_leaves(device, tp_note: str):
                 f"rank {rank}'s whole-leaf gradients off: {rels}")
         require(max(errs) <= TP_SCORE_RTOL,
                 f"rank {rank}'s losses {r['losses']} against {w_losses}")
-        require(r["launches"] == want_launches(),
+        want = want_launches(adamw=TP_TRAIN_STEPS * n_leaves(cfg))
+        require(r["launches"] == want,
                 f"rank {rank} launched {r['launches']}: the f32 step with "
-                "the kernels off launches none")
+                f"the kernels off launches only AdamW's, {want}")
 
 
 TP_TASKS = {"train": tp_train_rank, "serve": tp_serve_rank,
@@ -2551,7 +2584,8 @@ def run_tp_phases(device, gen, card: str, flash_rows: list,
         f"{w_peak} bytes; the ranks' phase took "
         f"{time.perf_counter() - t0:.1f} s")
     want = want_launches(flash=tcfg.n_layers * TP_TRAIN_STEPS,
-                         flash_bwd=tcfg.n_layers * TP_TRAIN_STEPS)
+                         flash_bwd=tcfg.n_layers * TP_TRAIN_STEPS,
+                         adamw=TP_TRAIN_STEPS * n_leaves(tcfg))
     local = (TP_TRAIN_BATCH, tcfg.n_heads // TP_RANKS, SEQ,
              tcfg.resolved_head_dim)
     for rank, r in enumerate(tr):
@@ -2788,7 +2822,8 @@ def run_tp_family_phases(device, gen, card: str, flash_rows: list,
     w_losses = p32["w_losses"]
     olmo = tp_family_config("olmo-1b")
     want = want_launches(flash=olmo.n_layers * TP_TRAIN_STEPS,
-                         flash_bwd=olmo.n_layers * TP_TRAIN_STEPS)
+                         flash_bwd=olmo.n_layers * TP_TRAIN_STEPS,
+                         adamw=TP_TRAIN_STEPS * n_leaves(olmo))
     local = (TP_TRAIN_BATCH, olmo.n_heads // TP_RANKS, SEQ,
              olmo.resolved_head_dim)
     for rank, r in enumerate(tr):
@@ -2980,6 +3015,126 @@ def check_flash_bwd(device, gen, shapes) -> dict:
     return errs
 
 
+def check_and_time_adamw(device, cfg, gen):
+    """Phase 39: AdamW's kernels at ``cfg``'s tree, bf16 parameters and
+    gradients, f32 moments, the clip's scale 0.5 on the device. Each
+    leaf's update against the plain version (bit-equal: new parameters,
+    m and v) and its sum of squares (within 1e-6 relative), then
+    the whole tree's pass of each timed as in phase 6 (20 passes back to
+    back for the kernels, 2 for the plain versions) beside the byte bound
+    and the library's multi-tensor kernels (``torch._fused_adamw_``, which
+    takes one dtype for p, g, m and v, so f32 for all four: 28 bytes a
+    parameter; ``torch._foreach_norm`` on the same bf16 gradients), none of
+    them on the port's path; then one AdamW.update over the tree, one call
+    of each kernel a leaf. Returns the kernels' rows."""
+    import torch
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import adamw as adamw_k
+    from repro_torch.models import registry
+    from repro_torch.optim import AdamW
+    shapes = [x.shape for x in T.leaves(registry.init(0, cfg, "meta"))]
+    n = sum(math.prod(s) for s in shapes)
+    ps = [torch.randn(s, generator=gen, device=device).bfloat16()
+          for s in shapes]
+    gs = [(torch.randn(s, generator=gen, device=device) * 1e-4).bfloat16()
+          for s in shapes]
+    ms = [torch.randn(s, generator=gen, device=device) * 1e-5
+          for s in shapes]
+    vs = [torch.rand(s, generator=gen, device=device) * 1e-9
+          for s in shapes]
+    scale = torch.tensor(0.5, device=device)
+    hp = dict(lr=3e-4, b1=0.9, b2=0.999, bc1=1 - 0.9 ** 3,
+              bc2=1 - 0.999 ** 3, eps=1e-8, weight_decay=0.01)
+    sq_err = 0.0
+    for p, g, m, v in zip(ps, gs, ms, vs):
+        m2, v2 = m.clone(), v.clone()
+        got = adamw_k.adamw_update(p, g, m2, v2, scale, **hp)
+        m3, v3 = m.clone(), v.clone()
+        want = adamw_k.plain_adamw_update(p, g, m3, v3, scale, **hp)
+        require(torch.equal(got, want) and torch.equal(m2, m3)
+                and torch.equal(v2, v3), f"the update at {tuple(p.shape)} "
+                "is not bit-equal to plain_adamw_update")
+        sq, sq_plain = adamw_k.sum_squares(g), adamw_k.plain_sum_squares(g)
+        require(torch.equal(sq, adamw_k.sum_squares(g)),
+                "two sums of squares differ")
+        sq_err = max(sq_err, abs(float(sq) - float(sq_plain))
+                     / float(sq_plain))
+        del got, want, m2, v2, m3, v3
+    log(f"  against plain: the update bit-equal (new parameters, m, v), "
+        f"sums of squares rel. {sq_err:.3e}")
+    require(sq_err <= 1e-6, f"sums of squares rel. {sq_err:.3e} > 1e-6")
+
+    def update():
+        for p, g, m, v in zip(ps, gs, ms, vs):
+            adamw_k.adamw_update(p, g, m, v, scale, **hp)
+
+    def plain_update():
+        for p, g, m, v in zip(ps, gs, ms, vs):
+            adamw_k.plain_adamw_update(p, g, m, v, scale, **hp)
+
+    def sumsq():
+        for g in gs:
+            adamw_k.sum_squares(g)
+
+    def plain_sumsq():
+        for g in gs:
+            adamw_k.plain_sum_squares(g)
+    ps32, gs32 = [p.float() for p in ps], [g.float() for g in gs]
+    counts = [torch.tensor(3.0, device=device) for _ in ps]
+
+    def library_update():
+        torch._fused_adamw_(ps32, gs32, ms, vs, [], counts, lr=hp["lr"],
+                            beta1=hp["b1"], beta2=hp["b2"],
+                            weight_decay=hp["weight_decay"], eps=hp["eps"],
+                            amsgrad=False, maximize=False)
+
+    def library_sumsq():
+        torch._foreach_norm(gs)
+    rows = {}
+    for name, fn, plain, lib, per_param, lib_per_param in (
+            ("adamw_update", update, plain_update, library_update,
+             2 * 2 + 2 + 16, 4 * 4 + 4 * 3),
+            ("sum_squares", sumsq, plain_sumsq, library_sumsq, 2, 2)):
+        nbytes, lib_bytes = per_param * n, lib_per_param * n
+        rows[name] = dict(
+            shape=f"{len(shapes)} leaves, {n} parameters, bf16 p and g",
+            ms=time_ms(fn), call_ms=call_ms(fn),
+            plain_ms=time_ms(plain, runs=2, batches=3),
+            library_ms=time_ms(lib),
+            library_bound_ms=lib_bytes / HBM_BYTES_PER_S * 1e3,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        r = rows[name]
+        log(f"  {name} over the tree: {r['ms']:.4f} ms ({nbytes} bytes, "
+            f"{nbytes / r['ms'] / 1e6:.1f} GB/s, {r['bound_ms'] / r['ms']:.3f}"
+            f" of its bound {r['bound_ms']:.4f} ms); alone {r['call_ms']:.4f}"
+            f" ms; plain {r['plain_ms']:.4f} ms; the library's "
+            f"{r['library_ms']:.4f} ms ({lib_bytes} bytes, "
+            f"{lib_bytes / r['library_ms'] / 1e6:.1f} GB/s, "
+            f"{r['library_bound_ms'] / r['library_ms']:.3f} of its bound "
+            f"{r['library_bound_ms']:.4f} ms)")
+    del ps32, gs32
+    both = rows["adamw_update"]["ms"] + rows["sum_squares"]["ms"]
+    bound = rows["adamw_update"]["bound_ms"] + rows["sum_squares"]["bound_ms"]
+    log(f"  both: {both:.4f} ms a step against {bound:.4f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s, {bound / both:.3f} of the bound")
+
+    params = dict(enumerate(ps))
+    opt = AdamW(lr=3e-4)
+    zero_counts()
+    opt.update(dict(enumerate(gs)), opt.init(params), params)
+    torch.cuda.synchronize()
+    launches, want = kernel_counts(), want_launches(adamw=len(ps))
+    log(f"  AdamW.update over the tree: launches {launches}")
+    require(device.type == "cpu" or launches == want,
+            f"AdamW.update over the tree launched "
+            f"{launches}, want {want}")
+    rows["adamw_update"].update(max_abs_err=0.0)
+    rows["sum_squares"].update(max_rel_err=sq_err)
+    del ps, gs, ms, vs, params
+    torch.cuda.empty_cache()
+    return rows
+
+
 def time_flash_bwd(device, shape, gen, window: int = 0):
     """The bf16 backward on the model's views, causal with ``window``,
     against its plain version and the library's flash backward
@@ -3091,8 +3246,8 @@ def main() -> int:
     # a backward for each gradient
     want = dict(want_launches(
         flash=cfg.n_layers * N_WORKERS * STEPS + cfg.n_layers * STEPS,
-        flash_bwd=cfg.n_layers * N_WORKERS * STEPS),
-        aggregate_shards=N_WORKERS * STEPS)
+        flash_bwd=cfg.n_layers * N_WORKERS * STEPS,
+        adamw=STEPS * n_leaves(cfg)), aggregate_shards=N_WORKERS * STEPS)
     log(f"  launches {launches}, expected {want}")
     require(launches == want, f"launch counts {launches} != {want}")
     routes = flash_routes()
@@ -3226,7 +3381,8 @@ def main() -> int:
         f"against {statistics.median(step_s)!r} s; peak {h_peak / 2**30:.2f} "
         f"GiB against {peak / 2**30:.2f} GiB")
     want = want_launches(flash=cfg.n_layers * TRAIN_STEPS,
-                         flash_bwd=cfg.n_layers * TRAIN_STEPS)
+                         flash_bwd=cfg.n_layers * TRAIN_STEPS,
+                         adamw=TRAIN_STEPS * n_leaves(cfg))
     log(f"  launches {h_launches}, expected {want}; flash routes {h_routes}")
     require(h_launches == want, f"launch counts {h_launches} != {want}")
     require_wgmma(h_routes, want, "hier training")
@@ -3366,7 +3522,8 @@ def main() -> int:
                 f"ZeRO-3 losses {z_losses} != phase 17's {h_losses} "
                 "(rtol 1e-5)")
     want = want_launches(flash=cfg.n_layers * TRAIN_STEPS,
-                         flash_bwd=cfg.n_layers * TRAIN_STEPS)
+                         flash_bwd=cfg.n_layers * TRAIN_STEPS,
+                         adamw=TRAIN_STEPS * n_leaves(cfg))
     log(f"  launches {z_launches}, expected {want}; flash routes {z_routes}")
     require(z_launches == want, f"launch counts {z_launches} != {want}")
     require_wgmma(z_routes, want, "ZeRO-3 training")
@@ -3394,7 +3551,8 @@ def main() -> int:
             f"predicted peak {mem['peak_memory_in_bytes']} not within "
             f"{DRYRUN_PEAK_RTOL} of {d_peak}")
     # remat runs the forward twice, the backward once
-    want = want_launches(flash=2 * cfg.n_layers, flash_bwd=cfg.n_layers)
+    want = want_launches(flash=2 * cfg.n_layers, flash_bwd=cfg.n_layers,
+                         adamw=n_leaves(cfg))
     log(f"  launches {d_launches}, expected {want}; flash routes {d_routes}")
     require(d_launches == want, f"launch counts {d_launches} != {want}")
     require_wgmma(d_routes, want, "the checked step")
@@ -3467,6 +3625,17 @@ def main() -> int:
         torch.cuda.empty_cache()
     log(f"  phase 38 took {time.perf_counter() - t0:.1f} s ({card})")
 
+    tied = full.replace(tie_embeddings=True)
+    log(f"[39] AdamW's kernels (csrc/adamw.cu) at {tied.arch_id}'s tree "
+        f"with the tied head ({registry.param_count(tied)} params) against "
+        "the plain versions, then timed (as in phase 6)")
+    adamw_rows = check_and_time_adamw(device, tied, gen)
+    for name in ("adamw_update", "sum_squares"):
+        # the calls of the training steps of phases 5, 17, 29 and 30, each
+        # held above to one a leaf a step
+        adamw_rows[name]["launches"] = sum(
+            x[name] for x in (launches, h_launches, z_launches, d_launches))
+
     kernels = [
         dict(name="aggregate_shards", route="cuda",
              source="src/repro_torch/kernels/csrc/hier_agg.cu",
@@ -3511,6 +3680,11 @@ def main() -> int:
              **{k: bwd_rows[0][k] for k in ("ms", "call_ms", "plain_ms",
                                             "library_ms", "bound_ms",
                                             "bound_by")}),
+        *(dict(name=name, route="cuda",
+               source="src/repro_torch/kernels/csrc/adamw.cu",
+               replaces="none: src/repro/optim/adamw.py is plain jnp",
+               **adamw_rows[name])
+          for name in ("adamw_update", "sum_squares")),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

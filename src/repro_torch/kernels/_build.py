@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("hier_agg.cu", "flash_attention.cu", "flash_attention_wgmma.cu",
-           "flash_attention_bwd.cu", "ssd_scan.cu", "ssd_scan_wgmma.cu")
+           "flash_attention_bwd.cu", "ssd_scan.cu", "ssd_scan_wgmma.cu",
+           "adamw.cu")
 HEADERS = ("hopper.cuh",)  # included by the sources: part of the hash
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -123,6 +124,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.smlt_ssd_scan_wgmma.restype = i32
     lib.smlt_ssd_wgmma_tile.argtypes = [i32] + [p] * 6
     lib.smlt_ssd_wgmma_tile.restype = i32
+    lib.smlt_adamw_update.argtypes = [p] * 6 + [i64] + [ctypes.c_float] * 9 \
+        + [i32, i32, p]
+    lib.smlt_adamw_update.restype = i32
+    lib.smlt_sum_squares.argtypes = [p, p, i64, p, i64, i32, p]
+    lib.smlt_sum_squares.restype = i32
     return lib
 
 

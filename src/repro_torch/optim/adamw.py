@@ -5,7 +5,9 @@ Math in f32, cast back to each parameter's dtype: global-norm clip,
 bias correction, decoupled weight decay. The moments are updated in place
 (they belong to the optimizer state, and at full width a second copy of
 them would cost as much as the model); parameters are returned as new
-tensors, because stale workers may still hold the old ones.
+tensors, because stale workers may still hold the old ones. Each leaf's
+sum of squares and update run in ``kernels/adamw.py``: one kernel launch
+each on a CUDA leaf, the plain PyTorch version on a CPU leaf.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch.distributed as dist
 from repro_torch.core import tree as T
 from repro_torch.core.hier_sync import all_reduce
 from repro_torch.core.spans import span
+from repro_torch.kernels import adamw as kernel
 
 
 @dataclasses.dataclass
@@ -61,7 +64,7 @@ class AdamW:
         step = state.step + 1
         scale = None
         if self.grad_clip:
-            sq = [torch.sum(torch.square(g.float())) for g in T.leaves(grads)]
+            sq = [kernel.sum_squares(g) for g in T.leaves(grads)]
             groups = [None if g is None else g if isinstance(g, tuple)
                       else (g,) for g in (T.leaves(sharded) if sharded
                                           is not None else [None] * len(sq))]
@@ -85,13 +88,9 @@ class AdamW:
         lr = self.lr * (self.schedule(step) if self.schedule else 1.0)
 
         def upd(p, g, m, v):
-            g = g.float() if scale is None else g.float() * scale
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * torch.square(g))
-            pf = p.float()
-            delta = (m / bc1) / (torch.sqrt(v / bc2) + self.eps) \
-                + self.weight_decay * pf
-            return (pf - lr * delta).to(p.dtype)
+            return kernel.adamw_update(
+                p, g, m, v, scale, lr=lr, b1=b1, b2=b2, bc1=bc1, bc2=bc2,
+                eps=self.eps, weight_decay=self.weight_decay)
 
         new_params = T.tree_map(upd, params, grads, state.mu, state.nu)
         return new_params, AdamWState(step=step, mu=state.mu, nu=state.nu)

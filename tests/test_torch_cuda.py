@@ -9,6 +9,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import adamw as adamw_k  # noqa: E402
 from repro_torch.kernels import hier_agg, ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
@@ -526,3 +527,91 @@ def test_flash_bwd_kernel_is_deterministic(gen, dtype):
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
+
+
+# olmo-1b's leaves, the 16 layers stacked (the embedding tied to the head),
+# and an odd length for the kernels' scalar tail
+OLMO_LEAF_SHAPES = [(50304, 2048), (16, 2048, 2048), (16, 2048, 8192),
+                    (16, 8192, 2048), (100_003,)]
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    *[(s, torch.bfloat16) for s in OLMO_LEAF_SHAPES],
+    ((16, 2048, 2048), torch.float32), ((100_003,), torch.float32)])
+def test_adamw_kernel_matches_plain_over_twenty_steps(gen, shape, dtype):
+    """Twenty steps of the kernel, each held against plain_adamw_update on
+    the kernel's own state: m, v and the new parameters bit-equal (the
+    plain version's arithmetic, operation for operation); the clip engaged
+    on the even steps (gradient norm ~3), not on the odd ones (~0.5) nor on
+    every fifth (no scale); the sum of squares within 1e-6 relative of the
+    plain one and bit-equal between two calls."""
+    p = _randn(gen, *shape, dtype=dtype)
+    m = torch.zeros(shape, device="cuda")
+    v = torch.zeros(shape, device="cuda")
+    b1, b2 = 0.9, 0.999
+    for step in range(1, 21):
+        norm = 0.5 if step % 2 else 3.0
+        g = (_randn(gen, *shape) * (norm / math.sqrt(p.numel()))).to(dtype)
+        sq = adamw_k.sum_squares(g)
+        assert torch.equal(sq, adamw_k.sum_squares(g))
+        torch.testing.assert_close(sq, adamw_k.plain_sum_squares(g),
+                                   rtol=1e-6, atol=0)
+        scale = None if step % 5 == 0 else torch.clamp(
+            1.0 / (torch.sqrt(sq) + 1e-9), max=1.0)
+        hp = dict(lr=3e-4 * (1 + step % 3), b1=b1, b2=b2,
+                  bc1=1 - b1 ** step, bc2=1 - b2 ** step, eps=1e-8,
+                  weight_decay=0.01)
+        m_plain, v_plain = m.clone(), v.clone()
+        before = adamw_k.LAUNCHES
+        new = adamw_k.adamw_update(p, g, m, v, scale, **hp)
+        assert adamw_k.LAUNCHES == before + 1
+        want = adamw_k.plain_adamw_update(p, g, m_plain, v_plain, scale, **hp)
+        assert new.dtype == dtype and new.shape == p.shape
+        for got, ref in ((m, m_plain), (v, v_plain), (new, want)):
+            assert torch.equal(got, ref), (
+                f"step {step}: max abs diff "
+                f"{float((got.float() - ref.float()).abs().max())}")
+        p = new
+    assert bool(torch.isfinite(p.float()).all())
+
+
+def test_adamw_kernel_unaligned_views_take_the_scalar_path(gen):
+    """Views 2 bytes / 4 bytes off 16-byte alignment run the scalar
+    instance and give what the aligned call gives."""
+    n = 4099
+    p = _randn(gen, n + 1, dtype=torch.bfloat16)
+    g = _randn(gen, n + 1, dtype=torch.bfloat16)
+    m = _randn(gen, n + 1) * 0.1
+    v = _randn(gen, n + 1).abs() * 0.01
+    hp = dict(lr=1e-3, b1=0.9, b2=0.999, bc1=0.19, bc2=0.002, eps=1e-8,
+              weight_decay=0.01)
+    aligned = [t[1:].clone() for t in (p, g, m, v)]
+    want = adamw_k.adamw_update(*aligned, **hp)
+    got = adamw_k.adamw_update(p[1:], g[1:], m[1:], v[1:], **hp)
+    assert torch.equal(got, want)
+    assert torch.equal(m[1:], aligned[2]) and torch.equal(v[1:], aligned[3])
+    assert torch.equal(adamw_k.sum_squares(g[1:]),
+                       adamw_k.sum_squares(aligned[1]))
+
+
+def test_adamw_update_launches_once_a_leaf(gen):
+    """AdamW.update on a CUDA tree: one update and one sum-of-squares
+    launch a leaf, and the result equals the plain path's."""
+    from repro_torch.core import tree as T
+    from repro_torch.optim import AdamW
+    params = {"a": _randn(gen, 64, 33, dtype=torch.bfloat16),
+              "b": {"c": _randn(gen, 1000), "d": _randn(gen, 8)}}
+    grads = {"a": _randn(gen, 64, 33, dtype=torch.bfloat16),
+             "b": {"c": _randn(gen, 1000) * 5, "d": _randn(gen, 8)}}
+    opt = AdamW(lr=1e-3)
+    before = (adamw_k.LAUNCHES, adamw_k.SUMSQ_LAUNCHES)
+    new, _ = opt.update(grads, opt.init(params), params)
+    assert (adamw_k.LAUNCHES, adamw_k.SUMSQ_LAUNCHES) == (before[0] + 3,
+                                                          before[1] + 3)
+    cpu_grads, cpu_params = (T.tree_map(lambda x: x.cpu(), t)
+                             for t in (grads, params))
+    want, _ = opt.update(cpu_grads, opt.init(cpu_params), cpu_params)
+    for got, ref in zip(T.leaves(new), T.leaves(want)):
+        torch.testing.assert_close(got.cpu().float(), ref.float(),
+                                   rtol=1e-2 if got.dtype == torch.bfloat16
+                                   else 1e-5, atol=1e-6)

@@ -14,6 +14,7 @@ import numpy as np  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import _build, hier_agg, ops, ref  # noqa: E402
+from repro_torch.kernels import adamw as adamw_k  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
@@ -465,13 +466,18 @@ class _FakeSSDLib:
         return 0
 
 
-def _fake_ssd(monkeypatch):
-    lib = _FakeSSDLib()
+def _install_fake_lib(monkeypatch, lib):
+    """``lib`` in place of the kernel library, and no CUDA device or
+    stream needed to launch."""
     monkeypatch.setattr(_build, "load", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: _NullContext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: type("S", (), {"cuda_stream": 0})())
     return lib
+
+
+def _fake_ssd(monkeypatch):
+    return _install_fake_lib(monkeypatch, _FakeSSDLib())
 
 
 def _meta_ssd_args(b, s, h, p, n, dtype):
@@ -560,6 +566,11 @@ def _no_kernels():
     lambda x: ops.ssd_scan(x.reshape(1, 64, 2, 32), x[0, :128].reshape(1, 64, 2),
                            x[0, :2], x[:, :512].reshape(1, 64, 16),
                            x[:, :512].reshape(1, 64, 16), x[0, :2], chunk=32),
+    lambda x: adamw_k.adamw_update(x, x, x.clone(), x.clone(), **_HYPER),
+    lambda x: adamw_k.adamw_update(x, x, x.clone(), x.clone(), x[0, 0],
+                                   **_HYPER),
+    lambda x: adamw_k.sum_squares(x),
+    lambda x: _adamw_step({"w": x}),
 ])
 def test_non_cpu_tensor_never_takes_plain_path(monkeypatch, call):
     """With the loader failing, a kernel request on a non-CPU tensor (the
@@ -575,7 +586,8 @@ def test_non_cpu_tensor_never_takes_plain_path(monkeypatch, call):
 
 def _launches():
     return (hier_agg.LAUNCHES, hier_agg.APPLY_LAUNCHES, fa.LAUNCHES,
-            dict(fa.ROUTE_LAUNCHES), ssd.LAUNCHES, dict(ssd.ROUTE_LAUNCHES))
+            dict(fa.ROUTE_LAUNCHES), ssd.LAUNCHES, dict(ssd.ROUTE_LAUNCHES),
+            adamw_k.LAUNCHES, adamw_k.SUMSQ_LAUNCHES)
 
 
 def test_cpu_calls_count_no_launch():
@@ -587,6 +599,9 @@ def test_cpu_calls_count_no_launch():
     ops.flash_attention(q, q, q)
     _, targs = _ssd_inputs(1, 32, 2, 8, 4)
     ops.ssd_scan(*targs, chunk=16)
+    adamw_k.adamw_update(x, x, x.clone(), x.clone(), x[0, 0], **_HYPER)
+    adamw_k.sum_squares(x)
+    _adamw_step({"w": x, "b": x[0].bfloat16()})
     assert _launches() == before
 
 
@@ -600,3 +615,231 @@ def test_aggregate_and_apply_has_no_cuda_path_yet():
         hier_agg.aggregate_and_apply(x, x[0].bfloat16(), 0.1)
     with pytest.raises(ValueError, match="param"):
         hier_agg.aggregate_and_apply(x, x[0, :500], 0.1)
+
+
+# ---------------------------------------------------------------------------
+# AdamW: the update and the clip's sum of squares
+# ---------------------------------------------------------------------------
+
+
+_HYPER = dict(lr=3e-4, b1=0.9, b2=0.999, bc1=1 - 0.9 ** 3,
+              bc2=1 - 0.999 ** 3, eps=1e-8, weight_decay=0.01)
+
+
+def _adamw_step(params):
+    from repro_torch.optim import AdamW
+    opt = AdamW(lr=3e-4)
+    return opt.update(params, opt.init(params), params)
+
+
+def _old_upd(p, g, m, v, scale, lr, b1, b2, bc1, bc2, eps, weight_decay):
+    """``optim/adamw.py``'s ``upd`` as it was before the kernel."""
+    g = g.float() if scale is None else g.float() * scale
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * torch.square(g))
+    pf = p.float()
+    delta = (m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * pf
+    return (pf - lr * delta).to(p.dtype)
+
+
+def _adamw_inputs(gen, n, p_dtype, g_dtype):
+    p = torch.randn(n, generator=gen).to(p_dtype)
+    g = (torch.randn(n, generator=gen) * 3).to(g_dtype)
+    m = torch.randn(n, generator=gen) * 0.1
+    v = torch.rand(n, generator=gen) * 0.01
+    return p, g, m, v
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_plain_adamw_update_is_the_old_upd_bit_for_bit(p_dtype, g_dtype):
+    gen = torch.Generator().manual_seed(3)
+    p, g, m, v = _adamw_inputs(gen, 1003, p_dtype, g_dtype)
+    for step in range(1, 4):
+        scale = None if step == 2 else torch.tensor(0.37)
+        hp = dict(_HYPER, bc1=1 - 0.9 ** step, bc2=1 - 0.999 ** step)
+        ms, vs = [m.clone() for _ in range(3)], [v.clone() for _ in range(3)]
+        want = _old_upd(p, g, ms[0], vs[0], scale, **hp)
+        got = adamw_k.plain_adamw_update(p, g, ms[1], vs[1], scale, **hp)
+        # the wrapper takes the plain version on a CPU tensor
+        wrapped = adamw_k.adamw_update(p, g, ms[2], vs[2], scale, **hp)
+        assert got.dtype == p_dtype
+        assert torch.equal(got, want) and torch.equal(wrapped, want)
+        assert all(torch.equal(x, ms[0]) for x in ms[1:])
+        assert all(torch.equal(x, vs[0]) for x in vs[1:])
+        p, m, v = got, ms[1], vs[1]
+    assert torch.equal(adamw_k.sum_squares(g),
+                       torch.sum(torch.square(g.float())))
+
+
+class _FakeAdamWLib:
+    """Records the AdamW kernels' calls (no card here), pointers resolved
+    back to the tensors they name."""
+
+    def __init__(self, tensors):
+        self.tensors, self.calls = tensors, []
+
+    def _t(self, ptr):
+        return None if ptr is None else self.tensors[ptr]
+
+    def smlt_adamw_update(self, p, g, m, v, out, scale, n, lr, b1, c1, b2,
+                          c2, bc1, bc2, eps, wd, p_dtype, g_dtype, stream):
+        self.calls.append(("update", [self._t(x) for x in
+                                      (p, g, m, v, out, scale)],
+                           n, (lr, b1, c1, b2, c2, bc1, bc2, eps, wd),
+                           (p_dtype, g_dtype)))
+        return 0
+
+    def smlt_sum_squares(self, g, partials, partials_len, out, n, dtype,
+                         stream):
+        self.calls.append(("sumsq", [self._t(x) for x in (g, partials, out)],
+                           n, dtype, partials_len))
+        return 0
+
+
+def _fake_adamw(monkeypatch):
+    """The library faked; every tensor's data_ptr is its id, so the fake
+    can tell which tensor the wrapper handed it."""
+    tensors = {}
+
+    def data_ptr(self):
+        tensors[id(self)] = self
+        return id(self)
+    monkeypatch.setattr(torch.Tensor, "data_ptr", data_ptr)
+    return _install_fake_lib(monkeypatch, _FakeAdamWLib(tensors))
+
+
+@pytest.mark.parametrize("p_dtype,g_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("clip", [False, True])
+def test_adamw_wrapper_hands_the_kernel_its_arguments(monkeypatch, p_dtype,
+                                                      g_dtype, clip):
+    """On a non-CPU tensor (meta stands in for CUDA) the update hands the
+    kernel p, g, m, v, a new output of p's dtype and the clip's scale (or
+    null), the length, the scalars (1 - b1 and 1 - b2 rounded from double,
+    the bias corrections' f32 reciprocals) and the dtype codes, and counts
+    one launch."""
+    lib = _fake_adamw(monkeypatch)
+    shape = (3, 1000)
+    p = torch.empty(shape, dtype=p_dtype, device="meta")
+    g = torch.empty(shape, dtype=g_dtype, device="meta")
+    m, v = (torch.empty(shape, device="meta") for _ in range(2))
+    scale = torch.empty((), device="meta") if clip else None
+    before = adamw_k.LAUNCHES
+    out = adamw_k.adamw_update(p, g, m, v, scale, **_HYPER)
+    assert adamw_k.LAUNCHES == before + 1
+    assert out.shape == shape and out.dtype == p_dtype
+    [(kind, ts, n, scalars, codes)] = lib.calls
+    assert kind == "update" and n == 3000
+    assert ts[0] is p and ts[1] is g and ts[2] is m and ts[3] is v
+    assert ts[4] is out and ts[5] is scale
+    h = _HYPER
+    assert scalars == (h["lr"], h["b1"], 1 - h["b1"], h["b2"], 1 - h["b2"],
+                       adamw_k.f32_reciprocal(h["bc1"]),
+                       adamw_k.f32_reciprocal(h["bc2"]), h["eps"],
+                       h["weight_decay"])
+    assert codes == (adamw_k._DTYPES[p_dtype], adamw_k._DTYPES[g_dtype])
+    before = adamw_k.SUMSQ_LAUNCHES
+    sq = adamw_k.sum_squares(g)
+    assert adamw_k.SUMSQ_LAUNCHES == before + 1
+    [_, (kind, (gt, partials, out), n, code, length)] = lib.calls
+    assert kind == "sumsq" and gt is g and out is sq and n == 3000
+    assert code == adamw_k._DTYPES[g_dtype]
+    assert sq.shape == () and sq.dtype == torch.float32
+    assert partials.shape == (adamw_k.SUMSQ_BLOCKS,) == (length,)
+    assert partials.dtype == torch.float64
+
+
+def test_adamw_empty_leaf_launches_nothing(monkeypatch):
+    """An empty leaf on the card gets an empty new parameter with no
+    library call and no launch counted."""
+    monkeypatch.setattr(_build, "load", _no_kernels)
+    p = torch.empty(0, 64, dtype=torch.bfloat16, device="meta")
+    m, v = torch.empty(0, 64, device="meta"), torch.empty(0, 64,
+                                                          device="meta")
+    before = adamw_k.LAUNCHES
+    out = adamw_k.adamw_update(p, p, m, v, **_HYPER)
+    assert adamw_k.LAUNCHES == before
+    assert out.shape == (0, 64) and out.dtype == torch.bfloat16
+
+
+def test_adamw_wrapper_copies_a_strided_p_and_g(monkeypatch):
+    """A sharded leaf's part may be a strided view: p and g reach the
+    kernel contiguous (copies), m and v as they are."""
+    lib = _fake_adamw(monkeypatch)
+    whole = torch.empty(8, 64, dtype=torch.bfloat16, device="meta")
+    p, g = whole[:, :32], whole[:, 32:]
+    m, v = (torch.empty(8, 32, device="meta") for _ in range(2))
+    adamw_k.adamw_update(p, g, m, v, **_HYPER)
+    ts = lib.calls[0][1]
+    assert ts[0].is_contiguous() and ts[1].is_contiguous()
+    assert ts[0] is not p and ts[2] is m and ts[3] is v
+
+
+def test_adamw_kernel_refuses_what_it_does_not_take(monkeypatch):
+    """Before loading the library: non-contiguous moments, moments other
+    than f32, p or g other than f32 / bf16, mismatched shapes, a scale of
+    more than one value; the sum of squares refuses other dtypes."""
+    monkeypatch.setattr(_build, "load", _no_kernels)
+    meta = dict(device="meta")
+    p = torch.empty(4, 64, **meta)
+    moment = torch.empty(4, 64, **meta)
+    strided = torch.empty(64, 4, **meta).t()
+    cases = [
+        (TypeError, "f32 or bf16", (p.half(), p, moment, moment)),
+        (TypeError, "f32 or bf16", (p, p.double(), moment, moment)),
+        (TypeError, "f32 moments", (p, p, moment.bfloat16(), moment)),
+        (ValueError, "contiguous", (p, p, strided, moment)),
+        (ValueError, "contiguous", (p, p, moment, strided)),
+        (ValueError, "one shape", (p, p[:, :32], moment, moment)),
+    ]
+    for err, match, args in cases:
+        with pytest.raises(err, match=match):
+            adamw_k.adamw_update(*args, **_HYPER)
+    with pytest.raises(ValueError, match="one f32 value"):
+        adamw_k.adamw_update(p, p, moment, moment, p[0, :2], **_HYPER)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        adamw_k.sum_squares(p.half())
+
+
+def test_f32_reciprocal_is_torchs_scalar_division():
+    """A CUDA tensor divided by a Python scalar x is multiplied by 1 / x
+    taken in double and rounded to f32 (seen on an H100: 0 of 10^7 values
+    differ, against millions for 1 / f32(x) in f32 or a true division);
+    at b2's first bias correction the two reciprocals differ."""
+    for x in (1 - 0.9, 1 - 0.999, 1 - 0.999 ** 3, 0.19, 1 - 0.999 ** 1000):
+        assert adamw_k.f32_reciprocal(x) == float(
+            torch.tensor(1 / x, dtype=torch.float64).float())
+    assert adamw_k.f32_reciprocal(1 - 0.999) == 1000.0
+    assert float(torch.tensor(1.0) / torch.tensor(1 - 0.999)) != 1000.0
+
+
+@pytest.mark.parametrize("p_dtype,g_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+def test_adamw_custom_ops_opcheck(p_dtype, g_dtype):
+    gen = torch.Generator().manual_seed(5)
+    p, g, m, v = _adamw_inputs(gen, 257, p_dtype, g_dtype)
+    h = _HYPER
+    for scale in (None, torch.tensor(0.5)):
+        torch.library.opcheck(torch.ops.smlt.adamw_update.default, (
+            p, g, m.clone(), v.clone(), scale, h["lr"], h["b1"], h["b2"],
+            h["bc1"], h["bc2"], h["eps"], h["weight_decay"]))
+    torch.library.opcheck(torch.ops.smlt.sum_squares.default, (g,))
+
+
+def test_adamw_fake_tensors_take_the_custom_ops():
+    """Fake tensors off the CPU (the dry run's CUDA trace) go through the
+    custom ops' fake versions: shapes and dtypes, no launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    before = _launches()
+    with FakeTensorMode():
+        p = torch.empty(4, 64, dtype=torch.bfloat16, device="meta")
+        m, v = torch.empty(4, 64, device="meta"), torch.empty(4, 64,
+                                                              device="meta")
+        sq = adamw_k.sum_squares(p)
+        out = adamw_k.adamw_update(p, p, m, v, sq, **_HYPER)
+    assert sq.shape == () and sq.dtype == torch.float32
+    assert out.shape == (4, 64) and out.dtype == torch.bfloat16
+    assert _launches() == before
