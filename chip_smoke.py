@@ -269,6 +269,19 @@ non-zero before the result lines:
      tree: one call of each kernel a leaf. The training phases (5, 17, 24,
      29, 30, 32, 37, 37b) count both kernels' calls in their launch checks:
      steps times leaves.
+ 40. granite-4.0-h-small (the benchmark's hybrid MoE cell: the
+     configuration file perfbench/configs/granite-4.0-h-small.json, 40
+     layers at full width, 36 of 72 experts held, bf16, random weights
+     from seed 0) scored on the cell's 8 x 4096 tokens through
+     registry.loss_fn: the first evaluation with every flash, SSD and
+     grouped expert products call held against its plain version
+     (held_against_plain; the products within EXPERTS_REL_NORM of the
+     per-expert plain products); its 4 flash calls at (8, 32, 4096, 128)
+     with scale 1/128 and its 36 SSD calls at 128 heads x 4096 (head 64,
+     state 128, chunk 256), exactly 4 flash and 36 SSD launches an
+     evaluation, all on wgmma; then SCORE_EVALS evaluations timed, and
+     one with spans on whose counters read 40 layers' held pairs and no
+     pair dropped; peak memory under 80 GB.
 
 The second-to-last line is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero without.
@@ -342,6 +355,16 @@ VISION_DEPTH = 20
 VISION_BATCH = 4
 # the vlm wiring opens the cross layers' tanh gates, which are zero at init
 XATTN_GATE = 0.5
+# phase 40: the benchmark's granite-4.0-h-small configuration at the
+# cell's batch; its parameters held (36 of 72 experts a layer)
+GRANITE_CONFIG = ROOT / "perfbench" / "configs" / "granite-4.0-h-small.json"
+GRANITE_BATCH, GRANITE_SEQ = 8, 4096
+GRANITE_PARAMS = 18_617_793_024
+# ||got - want|| / ||want|| of the grouped expert products against the
+# plain per-expert products on the same rows, as the card test holds them
+# (tests/test_torch_cuda.py): both round the first product to bf16, so
+# they differ by the products' accumulation order
+EXPERTS_REL_NORM = 5e-3
 # phase 30: the dry run's predicted peak against max_memory_allocated
 DRYRUN_PEAK_RTOL = 0.15
 # phase 30: the remat step against the same step with remat off (the
@@ -1224,17 +1247,21 @@ def n_leaves(cfg) -> int:
 
 @contextlib.contextmanager
 def held_against_plain(record: list):
-    """Within the block every ops.flash_attention and ops.ssd_scan call is
+    """Within the block every ops.flash_attention and ops.ssd_scan call,
+    and every moe.held_products call (the grouped expert products), is
     also run through its plain version on the same inputs (the model's
-    own activations and views) and held to it: flash at tol(dtype), the
-    SSD's y and state at ssd_tol(dtype), and in bf16 the relative norm
-    error of the output within FLASH_BF16_REL_NORM or SSD_BF16_REL_NORM.
+    own activations and views) and held to it: flash and the expert
+    products at tol(dtype), the SSD's y and state at ssd_tol(dtype), and
+    in bf16 the relative norm error of the output within
+    FLASH_BF16_REL_NORM, SSD_BF16_REL_NORM or EXPERTS_REL_NORM.
     ``record`` gets (kernel, relative norm error) for each call."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ssd
-    flash, scan = ops.flash_attention, ops.ssd_scan
+    from repro_torch.models import moe
+    flash, scan, grouped = ops.flash_attention, ops.ssd_scan, \
+        moe.held_products
 
     def held(name, got, want, rtol, atol, rel_limit):
         what = f"{name} call {len(record)} inside the model"
@@ -1248,7 +1275,7 @@ def held_against_plain(record: list):
     def flash_held(q, k, v, *, causal, window, **kw):
         out = flash(q, k, v, causal=causal, window=window, **kw)
         want = fa.plain_flash_attention(q, k, v, causal=causal,
-                                        window=window)
+                                        window=window, scale=kw.get("scale"))
         held("flash_attention", out, want, *tol(q.dtype),
              FLASH_BF16_REL_NORM)
         return out
@@ -1263,11 +1290,21 @@ def held_against_plain(record: list):
         held("ssd_scan", y, wy, yr, ya, SSD_BF16_REL_NORM)
         return y, S
 
+    def experts_held(ex, xs, counts, rows):
+        got = grouped(ex, xs, counts, rows)
+        want = moe.plain_held_products(ex, xs, rows)
+        require(got.shape == want.shape, f"expert products call "
+                f"{len(record)}: {tuple(got.shape)} != {tuple(want.shape)}")
+        held("expert_products", got, want, *tol(xs.dtype), EXPERTS_REL_NORM)
+        return got
+
     ops.flash_attention, ops.ssd_scan = flash_held, scan_held
+    moe.held_products = experts_held
     try:
         yield record
     finally:
         ops.flash_attention, ops.ssd_scan = flash, scan
+        moe.held_products = grouped
 
 
 def check_family_wiring(cfg, device, batch_size: int, seq: int, kernels,
@@ -1479,6 +1516,154 @@ def run_family(cfg, device, n_params: int, batch_size: int, seq: int,
                 score_s=secs, score_peak=score_peak,
                 prefill_s=stats["prefill_s"], decode_ms=per_tok_ms,
                 serve_peak=serve_peak)
+
+
+# ---------------------------------------------------------------------------
+# phase 40: granite-4.0-h-small, the benchmark's hybrid MoE cell
+# ---------------------------------------------------------------------------
+
+
+def granite_config():
+    """The ModelConfig of the benchmark's granite-4.0-h-small file."""
+    import torch
+    from repro_torch.models.base import ModelConfig
+    c = json.loads(GRANITE_CONFIG.read_text())
+    kw = dict(c["model"], dtype=getattr(torch, c["model"]["dtype"]))
+    return ModelConfig(arch_id=c["name"], source=c["source"], **kw)
+
+
+@contextlib.contextmanager
+def kernel_calls(record: list):
+    """Within the block each ops.flash_attention call appends ("flash",
+    q's shape, k's shape, its scale) to ``record`` and each ops.ssd_scan
+    call ("ssd", x's shape, B's shape, the chunk). Entered outside
+    held_against_plain, it sees each call once."""
+    from repro_torch.kernels import ops
+    flash, scan = ops.flash_attention, ops.ssd_scan
+
+    def flash_seen(q, k, v, **kw):
+        record.append(("flash", tuple(q.shape), tuple(k.shape),
+                       kw.get("scale")))
+        return flash(q, k, v, **kw)
+
+    def scan_seen(x, dt, A, B, C, D, *, chunk):
+        record.append(("ssd", tuple(x.shape), tuple(B.shape), chunk))
+        return scan(x, dt, A, B, C, D, chunk=chunk)
+
+    ops.flash_attention, ops.ssd_scan = flash_seen, scan_seen
+    try:
+        yield record
+    finally:
+        ops.flash_attention, ops.ssd_scan = flash, scan
+
+
+def run_granite(device) -> dict:
+    """Phase 40 (see the module's docstring); returns a summary."""
+    import torch
+    from repro_torch.core import spans
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import registry
+    cfg = granite_config()
+    n = registry.param_count(cfg)
+    require(n == GRANITE_PARAMS, f"{cfg.arch_id} holds {n} params, want "
+            f"{GRANITE_PARAMS}")
+    kinds = list(cfg.layer_types)
+    n_attn, n_mamba = kinds.count("attention"), kinds.count("mamba")
+    params = registry.init(0, cfg, device)
+    loader = make_loader(cfg, GRANITE_SEQ)
+    batches = [T.from_numpy(loader.next_batch(GRANITE_BATCH), device)
+               for _ in range(1 + SCORE_EVALS)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    seen, held = [], []
+    zero_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad(), kernel_calls(seen), held_against_plain(held):
+        held_loss = float(registry.loss_fn(params, cfg, batches[0]))
+    torch.cuda.synchronize()
+    held_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    routes = {"flash": flash_routes()["fwd"], "ssd": dict(ssd.ROUTE_LAUNCHES)}
+    worst = {}
+    for name, r in held:
+        worst[name] = max(worst.get(name, 0.0), r)
+    log(f"  the held evaluation ({held_s:.1f} s): loss {held_loss!r}; "
+        f"{len(held)} kernel calls held against their plain versions, "
+        f"largest relative norm err "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in worst.items())}")
+    log(f"  calls seen: {sorted(set(seen))}; launches {launches}, routes "
+        f"{routes}")
+    want = want_launches(flash=n_attn, ssd=n_mamba)
+    require(launches == want, f"the held evaluation's launches {launches} "
+            f"!= {want}")
+    require(routes == {"flash": {"wgmma": n_attn, "cuda_cores": 0},
+                       "ssd": {"wgmma": n_mamba, "cuda_cores": 0}},
+            f"the held evaluation's routes {routes}: want all on wgmma")
+    n_held = {}
+    for name, _ in held:
+        n_held[name] = n_held.get(name, 0) + 1
+    want_held = {"flash_attention": n_attn, "ssd_scan": n_mamba,
+                 "expert_products": cfg.n_layers}
+    require(n_held == want_held, f"calls held {n_held}, want {want_held}")
+    b, s, d = GRANITE_BATCH, GRANITE_SEQ, cfg.resolved_head_dim
+    h = cfg.d_model * cfg.ssm_expand // cfg.ssm_headdim
+    want_seen = (
+        [("flash", (b, cfg.n_heads, s, d), (b, cfg.n_heads, s, d),
+          cfg.attention_multiplier)] * n_attn
+        + [("ssd", (b, s, h, cfg.ssm_headdim), (b, s, cfg.ssm_state),
+            cfg.ssm_chunk)] * n_mamba)
+    require(sorted(seen) == sorted(want_seen), f"calls seen {seen}, want "
+            f"{sorted(set(want_seen))} ({n_attn} and {n_mamba})")
+
+    zero_counts()
+    secs, losses = [], []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            loss = registry.loss_fn(params, cfg, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = GRANITE_BATCH * GRANITE_SEQ
+    log(f"  {SCORE_EVALS} evaluations: losses {losses}; seconds {secs}; "
+        f"tokens/s {[tokens / t for t in secs]}; peak memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB)")
+    want = want_launches(flash=n_attn * SCORE_EVALS, ssd=n_mamba * SCORE_EVALS)
+    require(launches == want, f"scoring launches {launches} != {want}")
+    require(all(math.isfinite(x) for x in losses + [held_loss]),
+            f"losses {held_loss} {losses}")
+    require(peak < 80e9, f"a peak of {peak} bytes")
+
+    spans.clear()
+    with torch.no_grad(), spans.recording():
+        registry.loss_fn(params, cfg, batches[0])
+    counts = {}
+    for c in spans.counted():
+        counts.setdefault(c.name, []).append(c.value)
+    spans.clear()
+    pairs = counts.get("moe.pairs_held", [])
+    dropped = counts.get("moe.pairs_dropped", [])
+    busiest = counts.get("moe.pairs_busiest", [])
+    held_experts = cfg.experts_held or cfg.n_experts
+    log(f"  counters, one evaluation: held pairs {sum(pairs)} "
+        f"({sum(pairs) / (tokens * cfg.top_k * cfg.n_layers):.4f} of the "
+        f"routed pairs), dropped {sum(dropped)}, busiest over mean held "
+        f"expert {sum(busiest) * held_experts / max(sum(pairs), 1):.3f}")
+    require(len(pairs) == len(dropped) == len(busiest) == cfg.n_layers,
+            f"counter records {({k: len(v) for k, v in counts.items()})}, "
+            f"want {cfg.n_layers} each")
+    require(all(0 < x <= tokens * cfg.top_k for x in pairs),
+            f"held pairs a layer {pairs}")
+    require(not any(dropped), f"dropped pairs a layer {dropped}")
+    del params, batches
+    torch.cuda.empty_cache()
+    return dict(params=n, held_loss=held_loss, losses=losses, score_s=secs,
+                peak=peak, held_pairs=sum(pairs), launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -3635,6 +3820,14 @@ def main() -> int:
         # held above to one a leaf a step
         adamw_rows[name]["launches"] = sum(
             x[name] for x in (launches, h_launches, z_launches, d_launches))
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[40] {GRANITE_CONFIG.stem} at full width, {GRANITE_BATCH} x "
+        f"{GRANITE_SEQ} tokens an evaluation: every flash, SSD and expert "
+        "products call of the first held against its plain version")
+    run_granite(device)
+    log(f"  phase 40 took {time.perf_counter() - t0:.1f} s ({card})")
 
     kernels = [
         dict(name="aggregate_shards", route="cuda",

@@ -38,10 +38,24 @@ Spans in the port (the metric that reads each is in PERF.md):
 - ``adamw.update``: ``optim/adamw.py::AdamW.update``;
 - ``loss.cross_entropy``: ``models/layers.py::cross_entropy``;
 - ``serve.prefill``, ``serve.decode_step``: ``serving/engine.py::
-  ServingEngine.serve_batch``.
+  ServingEngine.serve_batch``;
+- ``moe.route``, ``moe.experts``, ``moe.combine``: ``models/moe.py::
+  dropless_moe`` (the router, top-k, sort and gather of the pairs; the
+  grouped expert products; the weighted f32 scatter-add).
 
-The records are kept in memory, at most ``CAP`` of them: past that the
-oldest are dropped, and ``dropped()`` counts them.
+**Counters** sit beside the spans and are on when they are: ``count(name,
+value)`` keeps a record of ``value`` with an id from the spans' own
+sequence, so that a reader can tell which span (and which unit of work)
+each record falls in; ``counted()`` gives the records. The port's
+counters: ``moe.pairs_held`` (the (token, slot) pairs routed to the
+experts this layer holds), ``moe.pairs_busiest`` (the pairs of the
+busiest of them) and ``moe.pairs_dropped`` (those pairs less the rows
+the expert products gave back: 0 in a dropless layer), one record each a
+layer, in ``dropless_moe``.
+
+The records are kept in memory, at most ``CAP`` spans and ``CAP``
+counter records: past that the oldest are dropped, and ``dropped()``
+counts them.
 """
 from __future__ import annotations
 
@@ -68,20 +82,33 @@ class Span(NamedTuple):
     device_ms: float
 
 
+class Count(NamedTuple):
+    id: int                     # from the spans' sequence of ids
+    name: str
+    value: int
+
+
 class _Recorder:
     """The process's spans: those open (a stack of ids) and those closed,
     each closed one as [id, parent, name, host start, host end, device ms
-    or None, start event, end event] until ``finished`` resolves it."""
+    or None, start event, end event] until ``finished`` resolves it; and
+    the counters' records."""
 
     def __init__(self):
         self.depth = 0          # recording() blocks entered
         self.next_id = 0
         self.open: List[int] = []
         self.closed = collections.deque(maxlen=CAP)
+        self.counts = collections.deque(maxlen=CAP)
         self.dropped = 0
 
 
 _rec = _Recorder()
+
+
+def on() -> bool:
+    """Whether spans (and counters) record now."""
+    return bool(_rec.depth or _autograd_profiler._is_profiler_enabled)
 
 
 def span(name: str):
@@ -90,6 +117,23 @@ def span(name: str):
     if not (_rec.depth or _autograd_profiler._is_profiler_enabled):
         return _NULL
     return _Span(name)
+
+
+def count(name: str, value: int) -> None:
+    """A record of ``value`` for the counter ``name`` while spans are on;
+    nothing otherwise."""
+    if not on():
+        return
+    r = _rec
+    if len(r.counts) == CAP:
+        r.dropped += 1
+    r.counts.append(Count(r.next_id, name, int(value)))
+    r.next_id += 1
+
+
+def counted() -> List[Count]:
+    """The counters' records kept, in the order they were made."""
+    return list(_rec.counts)
 
 
 @contextlib.contextmanager
@@ -155,11 +199,14 @@ def finished() -> List[Span]:
 
 
 def clear():
-    """Drop the closed spans, and the count of those dropped."""
+    """Drop the closed spans and the counters' records, and the count of
+    those dropped."""
     _rec.closed.clear()
+    _rec.counts.clear()
     _rec.dropped = 0
 
 
 def dropped() -> int:
-    """Closed spans dropped past ``CAP`` since the last ``clear``."""
+    """Closed spans and counter records dropped past ``CAP`` since the last
+    ``clear``."""
     return _rec.dropped

@@ -5,11 +5,12 @@
 // kernel in flash_attention_wgmma.cu (on the tensor cores f32 would run as
 // TF32, which cannot hold the f32 tolerance of 2e-4 / 2e-5).
 //
-// Semantics held from the reference: q is scaled by d^-0.5 before the dot
-// products; scores and the running (m, l, acc) are f32; masked scores are
-// -1e30 (not -inf); a k-tile wholly above the causal diagonal or wholly
-// outside the window is skipped (the rule of flash_attention.py:41-46 with
-// this kernel's tile sizes); the output is acc / max(l, 1e-30). Keys at or
+// Semantics held from the reference: q is scaled by `scale` (the caller's;
+// d^-0.5 unless a model gives its own) before the dot products; scores
+// and the running (m, l, acc) are f32; masked scores are -1e30 (not -inf);
+// a k-tile wholly above the causal diagonal or wholly outside the window
+// is skipped (the rule of flash_attention.py:41-46 with this kernel's tile
+// sizes); the output is acc / max(l, 1e-30). Keys at or
 // past seq_k are masked like any other. q, k, v and o are read and written
 // through their (b, h, s) strides with d contiguous, so transposed
 // (b, s, h, d) views need no copy. Given an lse buffer it also stores

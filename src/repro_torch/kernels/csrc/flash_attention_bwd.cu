@@ -8,7 +8,8 @@
 // replace src/repro/kernels/flash_attention.py::_flash_kernel.
 //
 // Arithmetic, held from the vjp of the reference's blockwise attention
-// (scale = d^-0.5, masked scores -1e30 as in the forward):
+// (scale the forward's, d^-0.5 unless a model gives its own; masked scores
+// -1e30 as in the forward):
 //   P  = exp(scale * Q K^T - lse)     (lse: the forward's natural-log
 //                                      logsumexp of the scaled, masked row)
 //   dV = P^T dO        dP = dO V^T     D = rowsum(dO o O)

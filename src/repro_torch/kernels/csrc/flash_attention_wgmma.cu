@@ -6,7 +6,8 @@
 // cores f32 would run as TF32 and could not hold the f32 tolerance.
 //
 // Semantics held from the reference: scores and the running (m, l, acc)
-// are f32; q is scaled by d^-0.5, applied here to the f32 scores after
+// are f32; q is scaled by `scale` (the caller's; d^-0.5 unless a model
+// gives its own), applied here to the f32 scores after
 // Q K^T (the same as (q * scale) . k up to f32 rounding); masked scores
 // are -1e30 (not -inf); a K tile wholly above the causal diagonal or wholly
 // outside the window is skipped; keys at or past seq_k are masked; queries

@@ -42,15 +42,19 @@ tiles, no atomics, so its bits repeat), in place of the reference's vjp of
 the blockwise attention (``ops.py:48-79``). Traced, the backward is the
 custom op ``smlt::flash_attention_bwd`` (FLOPs: ``flash_bwd_flops``).
 
-The logsumexp ``lse`` is one convention on both routes and in the plain
-version: f32 (b, h, sq), the natural log of the sum over a query's keys of
-exp(d^-0.5 q.k), masked scores -1e30 as in the forward; the backward
-recomputes P = exp(d^-0.5 q.k - lse). The tensor-core kernels work in base
-2 and convert on the way in and out.
+The softmax scale is ``scale`` times q.k, d^-0.5 unless given (a
+model's own multiplier: granite-4.0-h's 1/128 at d = 128); every route,
+the plain versions and the backward take it. The logsumexp ``lse`` is one
+convention on both routes and in the plain version: f32 (b, h, sq), the
+natural log of the sum over a query's keys of exp(scale q.k), masked
+scores -1e30 as in the forward; the backward recomputes
+P = exp(scale q.k - lse). The tensor-core kernels work in base 2 and
+convert on the way in and out.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode
@@ -92,41 +96,49 @@ def _masked_scores(qb, kf, start: int, causal: bool, window: int):
     return torch.where(mask, s, NEG_INF)
 
 
-def plain_flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def _scale(q, scale: Optional[float]) -> float:
+    """The softmax scale: ``scale``, or d^-0.5 for q's head dim d."""
+    return q.shape[3] ** -0.5 if scale is None else scale
+
+
+def plain_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                          scale: Optional[float] = None):
     """The same function in plain PyTorch, 256 queries at a time:
-    f32 scores of q * d^-0.5 against k, -1e30 where masked, then
-    (exp(s - max) @ v) / max(sum exp(s - max), 1e-30). (b, h, s, d)."""
-    d = q.shape[3]
+    f32 scores of q * scale (d^-0.5 by default) against k, -1e30 where
+    masked, then (exp(s - max) @ v) / max(sum exp(s - max), 1e-30).
+    (b, h, s, d)."""
+    sc = _scale(q, scale)
     kf = k.float()
     vf = v.float()
     outs = []
     for start in range(0, q.shape[2], 256):
-        qb = q[:, :, start:start + 256].float() * d ** -0.5
+        qb = q[:, :, start:start + 256].float() * sc
         s = _masked_scores(qb, kf, start, causal, window)
         p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
         outs.append((p @ vf) / torch.clamp(p.sum(-1, keepdim=True), min=1e-30))
     return torch.cat(outs, dim=2).to(q.dtype)
 
 
-def plain_flash_lse(q, k, *, causal: bool = True, window: int = 0):
+def plain_flash_lse(q, k, *, causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None):
     """The forward's logsumexp in plain PyTorch: f32 (b, h, sq), the natural
     log of sum over keys of exp(s) for plain_flash_attention's masked,
     scaled scores s."""
-    d = q.shape[3]
+    sc = _scale(q, scale)
     kf = k.float()
     return torch.cat([torch.logsumexp(_masked_scores(
-        q[:, :, start:start + 256].float() * d ** -0.5, kf, start, causal,
+        q[:, :, start:start + 256].float() * sc, kf, start, causal,
         window), dim=-1) for start in range(0, q.shape[2], 256)], dim=2)
 
 
 def plain_flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
-                              window: int = 0):
+                              window: int = 0, scale: Optional[float] = None):
     """The backward in plain f32 PyTorch, 256 queries at a time: with
     P = exp(s - lse) for the masked, scaled scores s, D = rowsum(g o out),
-    dS = P o (g v^T - D): dq = d^-0.5 dS k, dk = d^-0.5 dS^T q, dv = P^T g.
-    Returns (dq, dk, dv) in the inputs' dtypes, (b, h, s, d)."""
-    d = q.shape[3]
-    scale = d ** -0.5
+    dS = P o (g v^T - D): dq = scale dS k, dk = scale dS^T q, dv = P^T g
+    (scale d^-0.5 by default). Returns (dq, dk, dv) in the inputs' dtypes,
+    (b, h, s, d)."""
+    scale = _scale(q, scale)
     kf = k.float()
     vf = v.float()
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
@@ -187,10 +199,11 @@ def kernel_strides(x: torch.Tensor, route: str) -> list[int]:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    return_lse: bool = False):
+                    return_lse: bool = False, scale: Optional[float] = None):
     """q: (b, h, sq, d); k, v: (b, h, sk, d) -> (b, h, sq, d), a view of
     (b, sq, h, d) memory, and with ``return_lse`` also the f32 (b, h, sq)
-    logsumexp the backward reads. Forward only. A launch on a CUDA tensor
+    logsumexp the backward reads; softmax(scale q.k^T) v, ``scale`` d^-0.5
+    unless given. Forward only. A launch on a CUDA tensor
     (and on a meta tensor, which the CPU tests stand in for one), the plain
     version on a CPU tensor; when ``traced``, through the custom op
     ``smlt::flash_attention_fwd`` (``smlt::flash_attention_fwd_lse``),
@@ -208,11 +221,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if return_lse:
         if traced(q):
             return torch.ops.smlt.flash_attention_fwd_lse(q, k, v, causal,
-                                                          window)
-        return _flash_lse_impl(q, k, v, causal, window)
+                                                          window, scale)
+        return _flash_lse_impl(q, k, v, causal, window, scale)
     if traced(q):
-        return torch.ops.smlt.flash_attention_fwd(q, k, v, causal, window)
-    return _flash_impl(q, k, v, causal, window)
+        return torch.ops.smlt.flash_attention_fwd(q, k, v, causal, window,
+                                                  scale)
+    return _flash_impl(q, k, v, causal, window, scale)
 
 
 def traced(x) -> bool:
@@ -236,27 +250,30 @@ def _lse_like(q):
 
 
 def _flash_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                causal: bool, window: int) -> torch.Tensor:
+                causal: bool, window: int,
+                scale: Optional[float] = None) -> torch.Tensor:
     """The op on real tensors: the plain version on the CPU, a launch on
     any other device."""
-    return _flash_run(q, k, v, causal, window, None)
+    return _flash_run(q, k, v, causal, window, None, scale)
 
 
 def _flash_lse_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool, window: int
+                    causal: bool, window: int,
+                    scale: Optional[float] = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """The op with the logsumexp, on real tensors."""
     lse = _lse_like(q)
-    return _flash_run(q, k, v, causal, window, lse), lse
+    return _flash_run(q, k, v, causal, window, lse, scale), lse
 
 
-def _flash_run(q, k, v, causal: bool, window: int, lse):
+def _flash_run(q, k, v, causal: bool, window: int, lse, scale):
     """The output; and into ``lse``, unless None, the logsumexp."""
     if q.device.type == "cpu":
         if lse is not None:
-            lse.copy_(plain_flash_lse(q, k, causal=causal, window=window))
+            lse.copy_(plain_flash_lse(q, k, causal=causal, window=window,
+                                      scale=scale))
         return _bshd_view(q).copy_(plain_flash_attention(
-            q, k, v, causal=causal, window=window))
+            q, k, v, causal=causal, window=window, scale=scale))
     b, h, sq, d = q.shape
     sk = k.shape[2]
     route = flash_route(q.dtype, d)
@@ -269,8 +286,8 @@ def _flash_run(q, k, v, causal: bool, window: int, lse):
     with torch.cuda.device(q.device):        # the launch's current device
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-        args = (b, h, sq, sk, d, int(causal), int(window), d ** -0.5, st,
-                stream)
+        args = (b, h, sq, sk, d, int(causal), int(window),
+                _scale(q, scale), st, stream)
         if lse is None:
             fn = (lib.smlt_flash_attention_fwd_wgmma if route == "wgmma"
                   else lib.smlt_flash_attention_fwd)
@@ -292,13 +309,13 @@ _flash_fwd_lse = torch.library.custom_op("smlt::flash_attention_fwd_lse",
 
 
 @_flash_fwd.register_fake
-def _(q, k, v, causal, window):
+def _(q, k, v, causal, window, scale=None):
     flash_route(q.dtype, q.shape[3])       # what the card's kernels take
     return _bshd_view(q)
 
 
 @_flash_fwd_lse.register_fake
-def _(q, k, v, causal, window):
+def _(q, k, v, causal, window, scale=None):
     flash_route(q.dtype, q.shape[3])
     return _bshd_view(q), _lse_like(q)
 
@@ -353,9 +370,10 @@ def wgmma_tile(a, b, which: str):
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, scale: Optional[float] = None):
     """The gradients (dq, dk, dv) of flash_attention's output ``out``
-    against ``g`` (dO), from q, k, v, ``out`` and the forward's ``lse``;
+    against ``g`` (dO), from q, k, v, ``out`` and the forward's ``lse``, at
+    the forward's softmax ``scale`` (d^-0.5 unless given);
     each a (b, h, s, d) view of (b, s, h, d) memory in the inputs' dtype.
     A launch on a CUDA (or meta) tensor, the plain version on a CPU tensor;
     traced, the custom op ``smlt::flash_attention_bwd``. The kernels read
@@ -378,8 +396,8 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
                          f"({b}, {h}, {sq}) float32")
     if traced(q):
         return torch.ops.smlt.flash_attention_bwd(q, k, v, out, lse, g,
-                                                  causal, window)
-    return _flash_bwd_impl(q, k, v, out, lse, g, causal, window)
+                                                  causal, window, scale)
+    return _flash_bwd_impl(q, k, v, out, lse, g, causal, window, scale)
 
 
 def _bwd_scratch(q):
@@ -392,13 +410,14 @@ def _bwd_scratch(q):
 
 def _flash_bwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
-                    causal: bool, window: int
+                    causal: bool, window: int, scale: Optional[float] = None
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward on real tensors: the plain version on the CPU, the
     route's kernels on any other device."""
     if q.device.type == "cpu":
         grads = plain_flash_attention_bwd(q, k, v, out, lse, g,
-                                          causal=causal, window=window)
+                                          causal=causal, window=window,
+                                          scale=scale)
         return tuple(_bshd_view(x).copy_(dx) for x, dx in zip((q, k, v),
                                                                grads))
     b, h, sq, d = q.shape
@@ -424,7 +443,7 @@ def _flash_bwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  g.data_ptr(), lse.data_ptr(),
                  *(x.data_ptr() for x in grads), rows[0].data_ptr(),
                  rows[1].data_ptr(), b, h, sq, sk, d, int(causal),
-                 int(window), d ** -0.5, st, stream)
+                 int(window), _scale(q, scale), st, stream)
     _build.check(err, f"flash_attention_bwd ({route})")
     BWD_LAUNCHES += 1
     BWD_ROUTE_LAUNCHES[route] += 1
@@ -436,7 +455,7 @@ _flash_bwd = torch.library.custom_op("smlt::flash_attention_bwd",
 
 
 @_flash_bwd.register_fake
-def _(q, k, v, out, lse, g, causal, window):
+def _(q, k, v, out, lse, g, causal, window, scale=None):
     flash_route(q.dtype, q.shape[3])
     _bwd_scratch(q)                        # what the wrapper allocates too
     return _bshd_view(q), _bshd_view(k), _bshd_view(v)
@@ -462,12 +481,14 @@ class FlashAttention(torch.autograd.Function):
     v and the output."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
-        ctx.causal, ctx.window = causal, window
+    def forward(ctx, q, k, v, causal: bool, window: int,
+                scale: Optional[float] = None):
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         if not any(ctx.needs_input_grad[:3]):
-            return flash_attention(q, k, v, causal=causal, window=window)
+            return flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale)
         out, lse = flash_attention(q, k, v, causal=causal, window=window,
-                                   return_lse=True)
+                                   return_lse=True, scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -476,5 +497,5 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g,
                                          causal=ctx.causal,
-                                         window=ctx.window)
-        return dq, dk, dv, None, None
+                                         window=ctx.window, scale=ctx.scale)
+        return dq, dk, dv, None, None, None

@@ -35,8 +35,9 @@ def aggregate_and_apply(shards, param, *, lr: float, block: int = 8 * 1024):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    block_q: int = 256, block_k: int = 256):
-    """(b, h, s, d) attention; pads seq to block multiples. Differentiable:
+                    block_q: int = 256, block_k: int = 256, scale=None):
+    """(b, h, s, d) attention, softmax(scale q.k^T) v with ``scale`` d^-0.5
+    unless given; pads seq to block multiples. Differentiable:
     kernel forward + kernel backward (``FlashAttention``: the forward saves
     its logsumexp when an input wants a gradient; ``flash_attention_bwd``
     computes the reference's vjp, ``ops.py:48-79``, with kernels)."""
@@ -50,7 +51,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         # padded keys would be visible without the causal mask
         raise NotImplementedError(
             "non-causal flash with padded kv not supported; pad inputs")
-    out = _flash.FlashAttention.apply(qp, kp, vp, causal, window)
+    out = _flash.FlashAttention.apply(qp, kp, vp, causal, window, scale)
     return out[:, :, :sq]
 
 

@@ -2,8 +2,11 @@
 
 One dataclass covers every assigned family (dense / moe / ssm / hybrid /
 vlm / audio enc-dec); family-specific fields default to "off". Same fields
-and defaults as the JAX package's ``ModelConfig``; ``dtype`` is a torch
-dtype.
+and defaults as the JAX package's ``ModelConfig``, plus those of the
+port's own ``hybrid_moe`` family (granite-4.0-h: ``layer_types``,
+``experts_held``, ``shared_d_ff``, ``ssm_conv_bias``, ``nope`` and the
+muP multipliers), which the JAX package does not have; ``dtype`` is a
+torch dtype.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ def round_up(x: int, m: int) -> int:
 class ModelConfig:
     # identity
     arch_id: str = "unnamed"
-    family: str = "dense"  # dense | moe | ssm | hybrid | vlm | audio
+    # dense | moe | ssm | hybrid | hybrid_moe | vlm | audio
+    family: str = "dense"
     source: str = ""       # citation for the assigned config
 
     # core transformer dims
@@ -59,7 +63,21 @@ class ModelConfig:
     ssm_headdim: int = 64
     ssm_chunk: int = 256
     ssm_conv_width: int = 4
+    ssm_conv_bias: bool = False  # a bias on the causal convolutions
     attn_every: int = 0
+
+    # hybrid_moe (granite-4.0-h): each layer's mixer by type, "mamba" or
+    # "attention", each followed by the routed experts and a shared MLP
+    layer_types: tuple = ()
+    experts_held: int = 0        # routed experts held here; 0 -> all
+    shared_d_ff: int = 0         # the shared MLP's width; 0 -> none
+    # muP multipliers: embeddings x, residual branches x, logits / scaling;
+    # attention_multiplier is the softmax scale (0 -> head_dim^-0.5)
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attention_multiplier: float = 0.0
+    nope: bool = False           # no position embedding (no rotary)
 
     # VLM
     cross_attn_every: int = 0
@@ -80,6 +98,10 @@ class ModelConfig:
     use_flash_kernel: bool = False
     use_ssd_kernel: bool = False
     seq_shard: bool = False
+
+    def __post_init__(self):
+        # a configuration file gives the layer types as a JSON list
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
 
     # -- derived -------------------------------------------------------------
     @property

@@ -157,16 +157,18 @@ def _repeat_kv(x, n_rep: int):
 
 
 def blockwise_attention(q, k, v, *, causal: bool, q_offset: int = 0,
-                        sliding_window: int = 0, q_block: int = 512):
+                        sliding_window: int = 0, q_block: int = 512,
+                        scale: Optional[float] = None):
     """Online-softmax attention over query blocks.
 
     q: (b, sq, h, d); k, v: (b, skv, h, d). ``q_offset`` is the absolute
     position of q[0] relative to k[0] (decode: the cache index). Scores are
-    f32; masked scores are -1e30. Live memory is O(b*h*q_block*skv).
+    f32, ``scale`` q.k (d^-0.5 unless given); masked scores are -1e30. Live
+    memory is O(b*h*q_block*skv).
     """
     b, sq, h, d = q.shape
     skv = k.shape[1]
-    qf = q.float() * d ** -0.5
+    qf = q.float() * (d ** -0.5 if scale is None else scale)
     kf = k.float()
     vf = v.float()
     kv_pos = torch.arange(skv, device=q.device)
@@ -221,10 +223,11 @@ def apply_attention(params, cfg: ModelConfig, x, *, positions=None,
     k = k.reshape(b, s, nkv, hd)
     v = v.reshape(b, s, nkv, hd)
 
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if not cfg.nope:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     q_offset = 0
     new_cache = cache
@@ -251,17 +254,20 @@ def _attend(cfg: ModelConfig, q, k, v, *, causal: bool, q_offset: int,
             flash: bool):
     """q, k, v (b, s, h, d) with as many k / v heads as q heads: the flash
     kernel under ``cfg.use_flash_kernel`` for causal self-attention without
-    a cache, else ``blockwise_attention``."""
+    a cache, else ``blockwise_attention``; the softmax scale is
+    ``cfg.attention_multiplier``, or d^-0.5 where that is 0."""
     s = q.shape[1]
+    scale = cfg.attention_multiplier or None
     if cfg.use_flash_kernel and flash and causal and s > 1:
         from repro_torch.kernels import ops as kops
         out = kops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=True, window=cfg.sliding_window, block_q=min(256, s),
-            block_k=min(256, s))
+            block_k=min(256, s), scale=scale)
         return out.transpose(1, 2)
     return blockwise_attention(q, k, v, causal=causal, q_offset=q_offset,
-                               sliding_window=cfg.sliding_window)
+                               sliding_window=cfg.sliding_window,
+                               scale=scale)
 
 
 def kv_for_heads(k, lo: int, hi: int, n_rep: int, base: int):
@@ -622,14 +628,19 @@ def _label_count(valid):
     return torch.clamp(total, min=1.0) / n
 
 
-def cross_entropy(logits, labels, cfg: ModelConfig):
+def cross_entropy(logits, labels, cfg: ModelConfig, positions=None):
     """Mean next-token CE; masks vocab-padding columns and label == -1.
-    Either branch is the span ``loss.cross_entropy`` (``core/spans.py``)."""
+    Either branch is the span ``loss.cross_entropy`` (``core/spans.py``).
+
+    With ``positions`` (b, k) integer positions of each row, returns
+    ``(loss, {"row_loss": (b,), "logits": (b, k, vocab_size)})``: each
+    row's mean CE and the f32 logits at its positions, read from the same
+    f32 logits the loss is taken from (no second pass over the head)."""
     with span("loss.cross_entropy"):
-        return _cross_entropy(logits, labels, cfg)
+        return _cross_entropy(logits, labels, cfg, positions)
 
 
-def _cross_entropy(logits, labels, cfg: ModelConfig):
+def _cross_entropy(logits, labels, cfg: ModelConfig, positions=None):
     vp = logits.shape[-1]
     if tp.size() > 1 and vp != cfg.vocab_padded:
         return _vocab_parallel_cross_entropy(logits, labels, cfg)
@@ -642,7 +653,15 @@ def _cross_entropy(logits, labels, cfg: ModelConfig):
                         torch.clamp(labels, min=0).long()[..., None])[..., 0]
     nll = logz - gold
     valid = (labels >= 0).float()
-    return torch.sum(nll * valid) / _label_count(valid)
+    loss = torch.sum(nll * valid) / _label_count(valid)
+    if positions is None:
+        return loss
+    rows = torch.arange(logits.shape[0], device=logits.device)[:, None]
+    row_loss = torch.sum(nll * valid, dim=-1) / torch.clamp(
+        torch.sum(valid, dim=-1), min=1.0)
+    return loss, {"row_loss": row_loss,
+                  "logits": logits[rows, positions.long()][
+                      ..., :cfg.vocab_size]}
 
 
 def _vocab_parallel_cross_entropy(logits, labels, cfg: ModelConfig):

@@ -29,11 +29,12 @@ from repro_torch.models.transformer import remat_wrap, run_layers, stack_init
 # ---------------------------------------------------------------------------
 
 
-def causal_conv(x, w, state=None):
+def causal_conv(x, w, state=None, bias=None):
     """x: (b, s, c); w: (W, c) depthwise. state: (b, W-1, c) carried inputs.
-    Returns (out, new_state). The sum of W shifted products in x's dtype,
-    in the reference's order (not ``F.conv1d``, whose f32 path may run in
-    TF32 and sums in another order)."""
+    Returns (silu(out + bias), new_state), the bias (c,) only where given.
+    The sum of W shifted products in x's dtype, in the reference's order
+    (not ``F.conv1d``, whose f32 path may run in TF32 and sums in another
+    order)."""
     W = w.shape[0]
     s = x.shape[1]
     if state is None:
@@ -43,6 +44,8 @@ def causal_conv(x, w, state=None):
     out = w[0] * xp[:, 0:s]
     for i in range(1, W):
         out = out + w[i] * xp[:, i:i + s]
+    if bias is not None:
+        out = out + bias
     return F.silu(out), xp[:, -(W - 1):].clone()
 
 
@@ -119,7 +122,10 @@ def init_mamba_block(normal, cfg: ModelConfig, device,
     dt = cfg.dtype
     # U(1, 16) for A_log, through the normal CDF of one draw per head
     u = 0.5 * (1.0 + torch.erf(normal((nh,)) / math.sqrt(2.0)))
-    return {
+    bias = {"conv_x_bias": torch.zeros(di, dtype=dt, device=device),
+            "conv_BC_bias": torch.zeros(2 * n, dtype=dt, device=device)
+            } if cfg.ssm_conv_bias else {}
+    return {**bias,
         "ln": {"scale": torch.ones(d, dtype=dt, device=device)},
         "wz": L.dense_init(normal, d, di, dt),
         "wx": L.dense_init(normal, d, di, dt),
@@ -187,15 +193,27 @@ def _out_proj(bp, y, split: bool):
 
 
 def apply_mamba_block(bp, cfg: ModelConfig, h, cache=None):
-    """cache: {"conv_x", "conv_BC", "ssm"} or None. Returns (out, new_cache)."""
+    """cache: {"conv_x", "conv_BC", "ssm"} or None. Returns (h + the
+    mixer's output, new_cache)."""
+    out, new_cache = mamba_mixer(bp, cfg, h, cache)
+    return h + out, new_cache
+
+
+def mamba_mixer(bp, cfg: ModelConfig, h, cache=None):
+    """The block without its residual add: the norm of ``h``, the input
+    projections, the convolutions (with their biases under
+    ``cfg.ssm_conv_bias``), the SSD layer, the gated norm and the output
+    projection. Returns (out, new_cache); a model whose residual branch is
+    scaled (granite-4.0-h's ``residual_multiplier``) adds it itself."""
     split = _split(bp, cfg)
     nh, p, n = bp["A_log"].shape[-1], cfg.ssm_headdim, cfg.ssm_state
     z, x, BC, dt, A = _in_proj(bp, cfg, h, split)
     b, s, _ = x.shape
     cx = cache["conv_x"] if cache is not None else None
     cbc = cache["conv_BC"] if cache is not None else None
-    x, new_cx = causal_conv(x, bp["conv_x"], cx)
-    BC, new_cbc = causal_conv(BC, tp.seq_leaf(bp["conv_BC"]), cbc)
+    x, new_cx = causal_conv(x, bp["conv_x"], cx, bp.get("conv_x_bias"))
+    BC, new_cbc = causal_conv(BC, tp.seq_leaf(bp["conv_BC"]), cbc,
+                              bp.get("conv_BC_bias"))
     if split and not tp.seq_parallel():  # whole B, C read by this rank's
         BC = tp.copy_to_model(BC)        # heads only
     B, C = torch.split(BC, n, dim=-1)
@@ -212,8 +230,8 @@ def apply_mamba_block(bp, cfg: ModelConfig, h, cache=None):
                            initial_state=s0)
     y = y.reshape(b, s, nh * p)
     y = _gated_norm(y, z, bp["gate_ln"]["scale"], cfg, split)
-    out = _out_proj(bp, y, split)
-    return h + out, {"conv_x": new_cx, "conv_BC": new_cbc, "ssm": S}
+    return _out_proj(bp, y, split), {"conv_x": new_cx, "conv_BC": new_cbc,
+                                     "ssm": S}
 
 
 def apply_mamba_decode(bp, cfg: ModelConfig, h, cache):
@@ -222,8 +240,10 @@ def apply_mamba_decode(bp, cfg: ModelConfig, h, cache):
     split = _split(bp, cfg)
     nh, p, n = bp["A_log"].shape[-1], cfg.ssm_headdim, cfg.ssm_state
     z, x, BC, dt, A = _in_proj(bp, cfg, h, split)
-    x, new_cx = causal_conv(x, bp["conv_x"], cache["conv_x"])
-    BC, new_cbc = causal_conv(BC, bp["conv_BC"], cache["conv_BC"])
+    x, new_cx = causal_conv(x, bp["conv_x"], cache["conv_x"],
+                            bp.get("conv_x_bias"))
+    BC, new_cbc = causal_conv(BC, bp["conv_BC"], cache["conv_BC"],
+                              bp.get("conv_BC_bias"))
     B, C = torch.split(BC, n, dim=-1)
     y, S = ssd_decode_step(cache["ssm"], x[:, 0].reshape(b, nh, p),
                            dt[:, 0], A, B[:, 0], C[:, 0], bp["D"])

@@ -17,6 +17,13 @@ and each token gathers its k rows back and sums them, weighted by its
 gates, in f32. Dispatch is exact; combine adds the same <= k terms in
 slot order. ``_moe_group_onehot`` keeps the reference's einsum form as the
 plain version the tests hold it against.
+
+``dropless_moe`` is the other layer here, with no capacity: granite-4.0-h's
+routed experts (the ``hybrid_moe`` family). It is told which experts it
+holds, [first, first + held), routes over all ``n_experts``, and computes
+the part of the result its own experts give, dropping no pair; the held
+(token, slot) pairs are sorted by expert and run as grouped products.
+Padding the capacity path to no drops would run E / k times the rows.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import spans
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -177,6 +185,103 @@ def apply_moe_ffn(p, cfg: ModelConfig, x):
     if "dense" in p:
         out = out + L.apply_mlp(p["dense"], cfg, x)
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# dropless routed experts (granite-4.0-h)
+# ---------------------------------------------------------------------------
+
+
+def init_held_experts(normal, cfg: ModelConfig):
+    """The router over all ``cfg.n_experts`` and the ``cfg.experts_held``
+    experts held here (all where 0), each a SwiGLU of width ``cfg.d_ff``
+    whose input projection ``w1`` (d, 2 f) gives the gate's columns, then
+    the up projection's, and ``w2`` (f, d)."""
+    held, d, f = cfg.experts_held or cfg.n_experts, cfg.d_model, cfg.d_ff
+    return {"router": L.dense_init(normal, d, cfg.n_experts, cfg.dtype),
+            "experts": {
+                "w1": (normal((held, d, 2 * f)) * d ** -0.5).to(cfg.dtype),
+                "w2": (normal((held, f, d)) * f ** -0.5).to(cfg.dtype)}}
+
+
+def dropless_moe(p, cfg: ModelConfig, x, first: int = 0):
+    """The routed experts of ``x`` (b, s, d) -> f32 (b, s, d): every token's
+    top ``cfg.top_k`` of the router's logits over all experts, its gates
+    the softmax of those k logits, and the sum over its slots whose expert
+    this layer holds, [first, first + held) with held the experts in
+    ``p["experts"]``, of gate x expert(x). No pair is dropped; the other
+    slots are the absent experts' part, left to the layers that hold them.
+
+    Spans ``moe.route`` (router, top-k, the held pairs sorted by expert,
+    their rows gathered), ``moe.experts`` (the grouped products) and
+    ``moe.combine`` (the gated rows added into their tokens in f32); while
+    spans are on, counters ``moe.pairs_held``, ``moe.pairs_busiest`` and
+    ``moe.pairs_dropped``. The host reads the held experts' row counts once
+    a call: the grouped products take the rows that exist."""
+    b, s, d = x.shape
+    t, k = b * s, cfg.top_k
+    ex = p["experts"]
+    held = ex["w1"].shape[0]
+    xt = x.reshape(t, d)
+    with spans.span("moe.route"):
+        logits = (xt @ p["router"]).float()                       # (t, E)
+        top, idx = torch.topk(logits, k, dim=-1)                  # (t, k)
+        gates = torch.softmax(top, dim=-1)
+        local = idx.reshape(-1) - first
+        mine = (local >= 0) & (local < held)
+        key = torch.where(mine, local, held)         # absent experts last
+        order = torch.argsort(key, stable=True)
+        counts = torch.bincount(key, minlength=held + 1)[:held]
+        rows = counts.tolist()
+        n = sum(rows)
+        pick = order[:n]
+        tok = pick // k
+        xs = xt[tok]
+        gs = gates.reshape(-1)[pick]
+    with spans.span("moe.experts"):
+        ys = held_products(ex, xs, counts, rows)
+    if spans.on():
+        spans.count("moe.pairs_held", n)
+        spans.count("moe.pairs_busiest", max(rows))
+        # the pairs the router sent to held experts, against the rows
+        # the products gave back
+        spans.count("moe.pairs_dropped", int(mine.sum()) - ys.shape[0])
+    with spans.span("moe.combine"):
+        out = torch.zeros(t, d, dtype=torch.float32, device=x.device)
+        out.index_add_(0, tok, ys.float().mul_(gs[:, None]))
+    return out.reshape(b, s, d)
+
+
+def held_products(ex, xs, counts, rows):
+    """Each held expert's SwiGLU on its rows of ``xs`` (n, d), sorted by
+    expert, ``rows`` of each (``counts`` on the device): on a CPU tensor
+    the plain version, one expert at a time; on any other device two
+    grouped products (``torch._grouped_mm``), which take bf16 alone:
+    another dtype raises."""
+    if xs.device.type == "cpu":
+        return plain_held_products(ex, xs, rows)
+    if xs.dtype != torch.bfloat16 or ex["w1"].dtype != torch.bfloat16:
+        raise TypeError(f"the grouped expert products take bf16, not "
+                        f"{xs.dtype} rows and {ex['w1'].dtype} weights")
+    if not xs.shape[0]:
+        return xs.new_zeros(0, ex["w2"].shape[2])
+    f = ex["w2"].shape[1]
+    offs = torch.cumsum(counts, 0, dtype=torch.int32)
+    h1 = torch._grouped_mm(xs, ex["w1"], offs=offs)
+    return torch._grouped_mm(F.silu(h1[:, :f]) * h1[:, f:], ex["w2"],
+                             offs=offs)
+
+
+def plain_held_products(ex, xs, rows):
+    """``held_products`` in plain PyTorch: expert e's two products on its
+    ``rows[e]`` rows of ``xs``, one expert after another."""
+    outs, r0 = [], 0
+    f = ex["w2"].shape[1]
+    for e, c in enumerate(rows):
+        h1 = xs[r0:r0 + c] @ ex["w1"][e]
+        outs.append((F.silu(h1[:, :f]) * h1[:, f:]) @ ex["w2"][e])
+        r0 += c
+    return torch.cat(outs) if outs else xs.new_zeros(0, xs.shape[1])
 
 
 def init_block(normal, cfg: ModelConfig, device):

@@ -12,14 +12,18 @@ weight bridge to the reference, ``params_from_numpy``/``params_to_numpy``,
 and ``check_model_axis``: what stops a model from splitting over a model
 axis (every family takes one).
 ``batch`` is a dict: always {"tokens", "labels"}; plus "image_embeds" for
-vlm and "audio_frames" for the audio enc-dec.
+vlm and "audio_frames" for the audio enc-dec. The ``hybrid_moe`` family
+(granite-4.0-h, the port's own) also takes "logit_positions", and then
+its ``loss_fn`` returns (loss, {"row_loss", "logits"}); it scores only and
+takes no model axis.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import tree as T
-from repro_torch.models import encdec, hybrid, mamba2, moe, transformer, vlm
+from repro_torch.models import (encdec, hybrid, hybrid_moe, mamba2, moe,
+                                transformer, vlm)
 from repro_torch.models.base import ModelConfig
 
 _FAMILIES = {
@@ -27,6 +31,7 @@ _FAMILIES = {
     "moe": moe,
     "ssm": mamba2,
     "hybrid": hybrid,
+    "hybrid_moe": hybrid_moe,
     "vlm": vlm,
     "audio": encdec,
 }
@@ -37,19 +42,23 @@ def family_module(cfg: ModelConfig):
 
 
 # the families whose layers take their model parts (tensor parallelism)
-MODEL_AXIS_FAMILIES = tuple(_FAMILIES)
+MODEL_AXIS_FAMILIES = tuple(f for f in _FAMILIES if f != "hybrid_moe")
 
 
 def check_model_axis(cfg: ModelConfig, model_size: int,
                      seq_lens=()) -> None:
     """Raise where ``cfg`` cannot run on a model axis of ``model_size``:
-    fewer attention heads than ranks (a rank without a head), SSM heads
+    a family outside ``MODEL_AXIS_FAMILIES``, fewer attention heads than
+    ranks (a rank without a head), SSM heads
     that do not divide it (the specs would split d_inner inside a head),
     and, under ``seq_shard``, a sequence of ``seq_lens`` (the tokens', the
     audio frames') that does not divide it: the reference's GSPMD pads
     such a sequence, the port does not."""
     if model_size == 1:
         return
+    if cfg.family not in MODEL_AXIS_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the {cfg.family} family takes no model axis")
     if cfg.n_heads and cfg.n_heads < model_size:
         raise NotImplementedError(
             f"{cfg.arch_id}: {cfg.n_heads} heads on a model axis of "
@@ -127,8 +136,9 @@ def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     shapes = init(0, cfg, device="meta")
     total = sum(x.numel() for x in T.leaves(shapes))
     if active_only and cfg.n_experts:
-        expert = sum(x.numel()
-                     for x in T.leaves(shapes["blocks"]["moe"]["experts"]))
+        experts = (shapes["ffn"] if cfg.family == "hybrid_moe"
+                   else shapes["blocks"]["moe"])["experts"]
+        expert = sum(x.numel() for x in T.leaves(experts))
         total = total - expert + expert * cfg.top_k // cfg.n_experts
     return total
 

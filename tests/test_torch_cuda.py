@@ -615,3 +615,83 @@ def test_adamw_update_launches_once_a_leaf(gen):
         torch.testing.assert_close(got.cpu().float(), ref.float(),
                                    rtol=1e-2 if got.dtype == torch.bfloat16
                                    else 1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_scale_matches_plain_on_both_routes(gen, dtype):
+    """A model's own softmax scale (granite-4.0-h's 1/128 at d = 128, and
+    one above the default), forward, logsumexp and backward, against the
+    plain versions at that scale; without it, the kernels' d^-0.5 as
+    always."""
+    case = _bwd_case(gen, 2, 4, 300, 300, 128, dtype, True, 0)
+    q, k, v, _, _, g = case
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=5e-4, atol=1e-5)
+    for scale in (1 / 128, 0.125):
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, scale=scale)
+        torch.testing.assert_close(
+            out.float(), fa.plain_flash_attention(q, k, v,
+                                                  scale=scale).float(),
+            **tol)
+        torch.testing.assert_close(lse, fa.plain_flash_lse(q, k,
+                                                           scale=scale),
+                                   rtol=1e-5, atol=1e-5)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, g, scale=scale)
+        want = fa.plain_flash_attention_bwd(q, k, v, out, lse, g,
+                                            scale=scale)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a.float(), w.float(), **tol)
+            if dtype == torch.bfloat16:
+                assert _rel_norm_err(a, w) < BWD_BF16_REL_NORM
+    assert torch.equal(fa.flash_attention(q, k, v),
+                       fa.flash_attention(q, k, v, scale=128 ** -0.5))
+
+
+def test_dropless_moe_grouped_products_match_plain(gen):
+    """The routed experts' grouped products (``torch._grouped_mm`` on a
+    CUDA bf16 tensor) against the plain per-expert products on the same
+    rows, experts with no rows among them; and the whole layer's counters
+    against the routing of the same logits."""
+    from repro_torch.core import spans
+    from repro_torch.models import moe
+    from repro_torch.models.base import ModelConfig
+    held, d, f = 12, 512, 128
+    ex = {"w1": _randn(gen, held, d, 2 * f, dtype=torch.bfloat16) / 20,
+          "w2": _randn(gen, held, f, d, dtype=torch.bfloat16) / 10}
+    rows = [0, 300, 1, 0, 517, 64, 2, 999, 0, 33, 128, 5]
+    counts = torch.tensor(rows, device="cuda")
+    xs = _randn(gen, sum(rows), d, dtype=torch.bfloat16)
+    got = moe.held_products(ex, xs, counts, rows)
+    want = moe.plain_held_products(ex, xs, rows)
+    assert got.shape == want.shape == (sum(rows), d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert _rel_norm_err(got, want) < 5e-3
+    cfg = ModelConfig(d_model=d, d_ff=f, n_experts=24, experts_held=held,
+                      top_k=6, dtype=torch.bfloat16)
+    p = {"router": _randn(gen, d, 24, dtype=torch.bfloat16) / 20,
+         "experts": ex}
+    x = _randn(gen, 2, 700, d, dtype=torch.bfloat16)
+    spans.clear()
+    with spans.recording():
+        out = moe.dropless_moe(p, cfg, x, first=6)
+    counts = {c.name: c.value for c in spans.counted()}
+    spans.clear()
+    top = torch.topk((x.reshape(-1, d) @ p["router"]).float(), 6,
+                     dim=-1).indices
+    assert counts["moe.pairs_held"] == int(((top >= 6) & (top < 18)).sum())
+    assert counts["moe.pairs_dropped"] == 0
+    assert out.dtype == torch.float32 and bool(out.isfinite().all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_expert_products_refuse_other_dtypes_on_the_card(gen, dtype):
+    """On the card the expert products are the grouped ones or a refusal:
+    a float32 or float16 call never falls back to the per-expert loop."""
+    from repro_torch.models import moe
+    rows = [5, 0, 3]
+    ex = {"w1": _randn(gen, 3, 64, 32, dtype=dtype),
+          "w2": _randn(gen, 3, 16, 64, dtype=dtype)}
+    xs = _randn(gen, sum(rows), 64, dtype=dtype)
+    with pytest.raises(TypeError, match="bf16"):
+        moe.held_products(ex, xs, torch.tensor(rows, device="cuda"), rows)
