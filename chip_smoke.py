@@ -282,6 +282,14 @@ non-zero before the result lines:
      evaluation, all on wgmma; then SCORE_EVALS evaluations timed, and
      one with spans on whose counters read 40 layers' held pairs and no
      pair dropped; peak memory under 80 GB.
+ 41. the serving engine's decode step replayed as one captured CUDA graph
+     (serving/engine.py::DecodeGraph): full-width mamba2-2.7b (bf16,
+     random weights from seed 0) at batch 8, one batch of each of the
+     serve cell's prompt lengths (256, 512, 1024, 2048) with 32 greedy
+     tokens through the graphed engine and through the eager loop on the
+     same weights: tokens equal; each path's milliseconds a decode step;
+     the counters serve.decode_replayed (31 a batch) and
+     serve.decode_eager (none); peak memory.
 
 The second-to-last line is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero without.
@@ -365,6 +373,10 @@ GRANITE_PARAMS = 18_617_793_024
 # (tests/test_torch_cuda.py): both round the first product to bf16, so
 # they differ by the products' accumulation order
 EXPERTS_REL_NORM = 5e-3
+# phase 41: the serve cell's batch, prompt lengths and greedy tokens
+DECODE_GRAPH_BATCH = 8
+DECODE_GRAPH_LENS = (256, 512, 1024, 2048)
+DECODE_GRAPH_TOKENS = 32
 # phase 30: the dry run's predicted peak against max_memory_allocated
 DRYRUN_PEAK_RTOL = 0.15
 # phase 30: the remat step against the same step with remat off (the
@@ -1669,6 +1681,78 @@ def run_granite(device) -> dict:
 # ---------------------------------------------------------------------------
 # phases 16-18: the hier train step, launch/train.py, the train_e2e example
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# phase 41: the serving engine's captured decode step
+
+
+def run_decode_graph(device) -> dict:
+    """Phase 41 (see the module's docstring); returns a summary."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import spans
+    from repro_torch.models import registry
+    from repro_torch.serving import Request, ServingEngine
+    cfg = ARCHS["mamba2-2.7b"].replace(use_ssd_kernel=True)
+    require(registry.decode_replayable(cfg, device),
+            f"{cfg.arch_id}'s decode is not replayable on {device}")
+    params = registry.init(0, cfg, device)
+    graphed = ServingEngine(cfg, params=params, device=device)
+    eager = ServingEngine(cfg, params=params, device=device)
+    replayable = registry.decode_replayable
+
+    def serve(engine, reqs):
+        registry.decode_replayable = (replayable if engine is graphed
+                                      else lambda cfg, device: False)
+        try:
+            out = engine.serve_batch(reqs)
+        finally:
+            registry.decode_replayable = replayable
+        st = engine.last_stats
+        return out, 1e3 * st["decode_s"] / (st["new_tokens"] - 1)
+
+    b, n = DECODE_GRAPH_BATCH, DECODE_GRAPH_TOKENS
+    rng = np.random.RandomState(0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for engine in (graphed, eager):     # every prefill shape; the capture
+        for plen in DECODE_GRAPH_LENS:
+            serve(engine, [Request(r, np.zeros(plen, np.int32), 2)
+                           for r in range(b)])
+    capture_s = time.perf_counter() - t0
+    require(list(graphed.graphs) == [b] and eager.graphs == {},
+            f"graphs {list(graphed.graphs)} / {list(eager.graphs)}")
+    rows = []
+    spans.clear()
+    for plen in DECODE_GRAPH_LENS:
+        reqs = [Request(r, rng.randint(0, cfg.vocab_size, plen)
+                        .astype(np.int32), n) for r in range(b)]
+        want, eager_ms = serve(eager, reqs)
+        with spans.recording():
+            got, graph_ms = serve(graphed, reqs)
+        counts = {c.name: c.value for c in spans.counted()}
+        spans.clear()
+        same = all(g.tokens.tolist() == w.tokens.tolist()
+                   for g, w in zip(got, want))
+        rows.append(dict(prompt_len=plen, graph_ms=graph_ms,
+                         eager_ms=eager_ms, tokens_equal=same,
+                         replayed=counts.get("serve.decode_replayed"),
+                         eager=counts.get("serve.decode_eager")))
+        log(f"  prompt {plen}: {rows[-1]}")
+        require(same, f"graphed tokens differ from eager at prompt {plen}")
+        require((rows[-1]["replayed"], rows[-1]["eager"]) == (n - 1, 0),
+                f"counters {counts} at prompt {plen}")
+    peak = torch.cuda.max_memory_allocated()
+    med = {k: statistics.median(r[k] for r in rows)
+           for k in ("graph_ms", "eager_ms")}
+    log(f"  warm-up and capture {capture_s:.1f} s; peak "
+        f"{peak / 2**30:.2f} GiB; a decode step {med['graph_ms']:.2f} ms "
+        f"graphed, {med['eager_ms']:.2f} eager (medians over the lengths)")
+    return dict(rows=rows, peak_bytes=peak, capture_s=capture_s)
 
 
 def check_train_step_wiring(cfg, device, batch_size: int, seq: int):
@@ -3828,6 +3912,15 @@ def main() -> int:
         "products call of the first held against its plain version")
     run_granite(device)
     log(f"  phase 40 took {time.perf_counter() - t0:.1f} s ({card})")
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[41] mamba2-2.7b's decode step replayed as a captured CUDA graph "
+        f"against the eager loop: batch {DECODE_GRAPH_BATCH}, prompts of "
+        f"{', '.join(map(str, DECODE_GRAPH_LENS))}, {DECODE_GRAPH_TOKENS} "
+        "greedy tokens each")
+    run_decode_graph(device)
+    log(f"  phase 41 took {time.perf_counter() - t0:.1f} s ({card})")
 
     kernels = [
         dict(name="aggregate_shards", route="cuda",

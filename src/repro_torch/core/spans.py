@@ -51,7 +51,10 @@ counters: ``moe.pairs_held`` (the (token, slot) pairs routed to the
 experts this layer holds), ``moe.pairs_busiest`` (the pairs of the
 busiest of them) and ``moe.pairs_dropped`` (those pairs less the rows
 the expert products gave back: 0 in a dropless layer), one record each a
-layer, in ``dropless_moe``.
+layer, in ``dropless_moe``; ``serve.decode_replayed`` and
+``serve.decode_eager`` (a batch's decode steps replayed as one captured
+CUDA graph and those run eagerly), one record each a batch, in
+``serving/engine.py::ServingEngine.serve_batch``.
 
 The records are kept in memory, at most ``CAP`` spans and ``CAP``
 counter records: past that the oldest are dropped, and ``dropped()``

@@ -7,9 +7,11 @@ package's ``models/registry.py``).
     decode_step(params, cfg, cache, pos, tokens) -> (logits, cache)
     init_decode_cache(params, cfg, batch, max_seq, batch_extras) -> a cache
 
-plus ``param_count`` (on the meta device: nothing is allocated), the
-weight bridge to the reference, ``params_from_numpy``/``params_to_numpy``,
-and ``check_model_axis``: what stops a model from splitting over a model
+plus ``decode_replayable`` (whether the serving engine may replay a
+family's decode step as one captured CUDA graph), ``param_count`` (on
+the meta device: nothing is allocated), the weight bridge to the
+reference, ``params_from_numpy``/``params_to_numpy``, and
+``check_model_axis``: what stops a model from splitting over a model
 axis (every family takes one).
 ``batch`` is a dict: always {"tokens", "labels"}; plus "image_embeds" for
 vlm and "audio_frames" for the audio enc-dec. The ``hybrid_moe`` family
@@ -22,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import tree as T
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import (encdec, hybrid, hybrid_moe, mamba2, moe,
                                 transformer, vlm)
 from repro_torch.models.base import ModelConfig
@@ -107,6 +110,22 @@ def prefill(params, cfg: ModelConfig, batch, max_seq=None):
 
 def decode_step(params, cfg: ModelConfig, cache, pos, tokens):
     return family_module(cfg).decode_step(params, cfg, cache, pos, tokens)
+
+
+# the families whose decode step takes the same shapes, reads the same
+# addresses and launches the same kernels at every position, with no host
+# sync: mamba2's cache has no sequence axis and its step ignores ``pos``.
+# The KV-cache families index their caches with a host ``int(pos)``, the
+# MoE families read row counts on the host, zamba2 keeps a ring.
+REPLAYABLE_FAMILIES = ("ssm",)
+
+
+def decode_replayable(cfg: ModelConfig, device) -> bool:
+    """Whether one captured CUDA graph can replay ``cfg``'s decode step on
+    ``device``: a family of ``REPLAYABLE_FAMILIES``, on CUDA, with no
+    model axis (``tp.size() == 1``). Every other decode runs eagerly."""
+    return (cfg.family in REPLAYABLE_FAMILIES
+            and torch.device(device).type == "cuda" and tp.size() == 1)
 
 
 def init_decode_cache(params, cfg: ModelConfig, batch: int, max_seq: int,

@@ -1,7 +1,9 @@
 """Card-only checks of the hand-written CUDA kernels: each is held against
 its plain version on the card, counts its launches, and refuses what it
-does not take. Marked ``cuda``; they skip on a machine without a card and
-run there with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
+does not take; and of the serving engine's decode step replayed as a
+captured CUDA graph, against its eager loop. Marked ``cuda``; they skip
+on a machine without a card and run there with ``python -m pytest -q -m
+cuda tests/test_torch_cuda.py``."""
 import math
 
 import pytest
@@ -695,3 +697,127 @@ def test_expert_products_refuse_other_dtypes_on_the_card(gen, dtype):
     xs = _randn(gen, sum(rows), 64, dtype=dtype)
     with pytest.raises(TypeError, match="bf16"):
         moe.held_products(ex, xs, torch.tensor(rows, device="cuda"), rows)
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's captured decode step (serving/engine.py::DecodeGraph)
+# ---------------------------------------------------------------------------
+
+GRAPH_LAYERS = 4        # mamba2-2.7b cut in depth, at its published widths
+
+
+@pytest.fixture(scope="module")
+def mamba2_engine():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.configs import ARCHS
+    from repro_torch.serving import ServingEngine
+    cfg = ARCHS["mamba2-2.7b"].replace(n_layers=GRAPH_LAYERS)
+    assert (cfg.d_model, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state) \
+        == (2560, 80, 64, 128)
+    return ServingEngine(cfg, seed=0, device="cuda")
+
+
+def _graph_requests(cfg, b, plen, new, seed):
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.RandomState(seed)
+    return [Request(i, rng.randint(0, cfg.vocab_size, plen).astype(np.int32),
+                    new) for i in range(b)]
+
+
+def _eager_tokens(engine, reqs, monkeypatch):
+    """The engine's greedy tokens through the eager decode loop, on the
+    same weights."""
+    from repro_torch.models import registry
+    from repro_torch.serving import ServingEngine
+    with monkeypatch.context() as m:
+        m.setattr(registry, "decode_replayable", lambda cfg, device: False)
+        eager = ServingEngine(engine.cfg, params=engine.params, device="cuda")
+        out = eager.serve_batch(reqs)
+        assert eager.graphs == {}
+    return [c.tokens for c in out]
+
+
+def _same_tokens(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.tokens.tolist() == w.tolist()
+
+
+@pytest.mark.parametrize("plen", [256, 512])
+def test_graphed_decode_equals_eager_bit_for_bit(mamba2_engine, plen,
+                                                 monkeypatch):
+    """Batch 8: the replayed step's logits equal the eager step's bit for
+    bit, step after step, and so do the engine's greedy tokens."""
+    import numpy as np
+    from repro_torch.core import spans
+    from repro_torch.models import registry
+    from repro_torch.serving.engine import DecodeGraph
+    eng, cfg = mamba2_engine, mamba2_engine.cfg
+    reqs = _graph_requests(cfg, 8, plen, 8, seed=plen)
+    spans.clear()
+    with spans.recording():
+        got = eng.serve_batch(reqs)
+    assert [(c.name, c.value) for c in spans.counted()] == [
+        ("serve.decode_replayed", 7), ("serve.decode_eager", 0)]
+    spans.clear()
+    assert 8 in eng.graphs
+    _same_tokens(got, _eager_tokens(eng, reqs, monkeypatch))
+
+    toks = torch.from_numpy(np.stack([r.prompt for r in reqs])).cuda()
+    with torch.no_grad():
+        logits, cache = registry.prefill(eng.params, cfg, {"tokens": toks})
+        tok = torch.argmax(logits[:, -1:, :cfg.vocab_size], dim=-1)
+        g = DecodeGraph(eng.params, cfg, cache, tok, plen)
+        for t in range(6):
+            logits, cache = registry.decode_step(eng.params, cfg, cache,
+                                                 plen + t, tok)
+            tok = torch.argmax(logits[:, :, :cfg.vocab_size], dim=-1)
+            assert torch.equal(g.step(), tok)
+            assert torch.equal(g.logits, logits), t
+        for k, x in cache.items():
+            assert torch.equal(g.cache[k], x), k
+
+
+def test_graph_is_reused_and_keeps_no_state(mamba2_engine, monkeypatch):
+    """Two batches in a row with different prompts, of two lengths, reuse
+    one capture; each gives the eager tokens, and the first batch served
+    again gives its own tokens again."""
+    eng, cfg = mamba2_engine, mamba2_engine.cfg
+    a = _graph_requests(cfg, 8, 256, 6, seed=1)
+    b = _graph_requests(cfg, 8, 512, 6, seed=2)
+    first = eng.serve_batch(a)
+    graph = eng.graphs[8]
+    second = eng.serve_batch(b)
+    again = eng.serve_batch(a)
+    assert eng.graphs[8] is graph and list(eng.graphs) == [8]
+    _same_tokens(first, _eager_tokens(eng, a, monkeypatch))
+    _same_tokens(second, _eager_tokens(eng, b, monkeypatch))
+    _same_tokens(again, [c.tokens for c in first])
+
+
+def test_each_batch_size_captures_its_own_graph(mamba2_engine, monkeypatch):
+    eng, cfg = mamba2_engine, mamba2_engine.cfg
+    eng.serve_batch(_graph_requests(cfg, 8, 256, 4, seed=3))
+    eight = eng.graphs[8]
+    reqs = _graph_requests(cfg, 4, 256, 6, seed=4)
+    got = eng.serve_batch(reqs)
+    assert eng.graphs[8] is eight and eng.graphs[4] is not eight
+    assert eng.graphs[4].tok.shape == (4, 1)
+    _same_tokens(got, _eager_tokens(eng, reqs, monkeypatch))
+
+
+def test_replacing_params_drops_the_graphs(mamba2_engine, monkeypatch):
+    from repro_torch.models import registry
+    eng, cfg = mamba2_engine, mamba2_engine.cfg
+    reqs = _graph_requests(cfg, 8, 256, 6, seed=5)
+    eng.serve_batch(reqs)
+    assert eng.graphs
+    old = eng.params
+    eng.params = registry.init(1, cfg, "cuda")
+    assert eng.graphs == {}
+    got = eng.serve_batch(reqs)
+    assert list(eng.graphs) == [8]
+    _same_tokens(got, _eager_tokens(eng, reqs, monkeypatch))
+    eng.params = old

@@ -160,3 +160,49 @@ def test_serve_launcher_tokens_equal_engine(arch, monkeypatch):
     want = eng.serve_batch([Request(i, p, gen) for i, p in enumerate(prompts)])
     assert toks.shape == (n, gen) and toks.dtype == np.int32
     np.testing.assert_array_equal(toks, np.stack([c.tokens for c in want]))
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_decode_replayable_only_for_ssm_on_cuda_without_model_axis(
+        arch, monkeypatch):
+    """Only the ssm family's decode step is replayed as a captured CUDA
+    graph, and only on CUDA at tp.size() == 1; every other decode keeps the
+    eager loop."""
+    from repro_torch.distributed import tensor_parallel as tp
+    cfg = ARCHS[arch]
+    assert not registry.decode_replayable(cfg, "cpu")
+    assert not registry.decode_replayable(cfg, torch.device("cpu"))
+    assert registry.decode_replayable(cfg, "cuda") == (cfg.family == "ssm")
+    monkeypatch.setattr(tp, "size", lambda: 2)
+    assert not registry.decode_replayable(cfg, "cuda")
+
+
+def _decode_counts():
+    from repro_torch.core import spans
+    return [(c.name, c.value) for c in spans.counted()
+            if c.name.startswith("serve.decode_")]
+
+
+def test_cpu_engine_counts_every_decode_step_eager():
+    from repro_torch.core import spans
+    _, eng = _engines("mamba2-2.7b")
+    spans.clear()
+    with spans.recording():
+        eng.serve_batch([Request(i, p, 6) for i, p in
+                         enumerate(_prompts(eng.cfg, 3, 12))])
+        eng.serve_batch([Request(0, _prompts(eng.cfg, 1, 8)[0], 1)])
+    assert _decode_counts() == [("serve.decode_replayed", 0),
+                                ("serve.decode_eager", 5),
+                                ("serve.decode_replayed", 0),
+                                ("serve.decode_eager", 0)]
+    assert eng.graphs == {}
+    spans.clear()
+
+
+def test_decode_counters_record_nothing_when_spans_are_off():
+    from repro_torch.core import spans
+    _, eng = _engines("mamba2-2.7b")
+    spans.clear()
+    eng.serve_batch([Request(i, p, 4) for i, p in
+                     enumerate(_prompts(eng.cfg, 2, 10))])
+    assert _decode_counts() == [] and spans.counted() == []
