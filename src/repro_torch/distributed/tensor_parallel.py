@@ -279,10 +279,13 @@ def used_part(w, dim: int, full: int, lo: int, hi: int):
     ``full``, from what this rank holds of it: its model part where that
     is exactly those entries; else the whole leaf (gathered over the model
     group where it is held split), through ``copy_to_model``, since this
-    rank's use of it is then a part of the model group's."""
+    rank's use of it is then a part of the model group's; not narrowed
+    where that is all of it (a narrow's backward writes its gradient into
+    a zero leaf)."""
     k = w.shape[dim]
     if k != full and lo == rank() * k and hi - lo == k:
         return w
     if k != full:
         w = gather_from_model(w, dim)
-    return copy_to_model(w).narrow(dim, lo, hi - lo)
+    w = copy_to_model(w)
+    return w if hi - lo == full else w.narrow(dim, lo, hi - lo)

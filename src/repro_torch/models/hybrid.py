@@ -116,17 +116,12 @@ def _ring_attend(attn, cfg: ModelConfig, x, attn_cache, pos: int):
     return tp.reduce_from_model(o), {"k": ck, "v": cv}
 
 
-def _stacked(c: dict, n: int) -> dict:
-    return {k: torch.zeros((n,) + x.shape, dtype=x.dtype, device=x.device)
-            for k, x in c.items()}
-
-
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     ng, _ = n_groups(cfg)
-    return {"mamba": _stacked(M.init_block_cache(cfg, batch, device),
-                              cfg.n_layers),
-            "attn": _stacked(init_attn_cache(cfg, batch, max_seq, device),
-                             ng)}
+    return {"mamba": T.stacked_zeros(M.init_block_cache(cfg, batch, device),
+                                     cfg.n_layers),
+            "attn": T.stacked_zeros(
+                init_attn_cache(cfg, batch, max_seq, device), ng)}
 
 
 def _shared_block(params, cfg: ModelConfig, h, ring: int):
@@ -225,7 +220,7 @@ def decode_step(params, cfg: ModelConfig, cache, pos: int, tokens):
     rings = T.unbind_layers(cache["attn"], n_groups(cfg)[0])
     new_m, new_rings = [], []
     for i, (bp, c) in enumerate(zip(bps, caches)):
-        h, nc = M.apply_mamba_decode(T.gather_layer(bp), cfg, h, c)
+        h, nc = M.apply_mamba_block(T.gather_layer(bp), cfg, h, cache=c)
         new_m.append(nc)
         if (i + 1) % cfg.attn_every == 0:
             h, ring = shared_attn_decode(params["shared"], cfg, h,

@@ -196,58 +196,69 @@ def blockwise_attention(q, k, v, *, causal: bool, q_offset: int = 0,
 def apply_attention(params, cfg: ModelConfig, x, *, positions=None,
                     causal: bool = True, cache: Optional[dict] = None,
                     cache_index: Optional[int] = None):
-    """GQA self-attention with an optional KV cache.
+    """GQA self-attention with an optional KV cache, rotary on q and k
+    unless ``cfg.nope``, on this model rank's q heads [lo, hi) (every head
+    at model size 1): q for them, k and v for the kv heads they read, the
+    output projection's rows of those heads, summed over the model group.
+    Returns (out, new_cache).
 
-    cache: {"k": (b, max_s, kv, d), "v": ...}; the new cache is a copy with
-    this call's keys and values written at ``cache_index``. Returns
-    (out, new_cache).
-    """
-    if tp.size() > 1:
-        return _attention_tp(params, cfg, x, positions=positions,
-                             causal=causal, cache=cache,
-                             cache_index=cache_index)
-    b, s, _ = x.shape
+    The cache is this rank's part as ``init_kv_cache`` shapes it
+    (``kv_layout``): its kv heads ("kv"); where those do not divide the
+    model axis, its part of every head's dims ("hd"); else the whole
+    ("whole", always at model size 1). The new cache is a copy with this
+    call's keys and values (on "hd" this rank's dims of them) written at
+    ``cache_index``. Prefill (``cache_index`` 0) attends over the new
+    keys; a later step attends over the cache, on "hd" by contracting
+    q . k over the split dims with an all-reduce of the partial scores
+    and gathering the output's dims."""
     hd = cfg.resolved_head_dim
-    nq = params["wq"].shape[1] // hd
-    nkv = params["wk"].shape[1] // hd
-    window = cfg.sliding_window
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    n_rep = nq // nkv
+    lo, hi = head_bounds(nq)
+    klo, khi = lo // n_rep, (hi - 1) // n_rep + 1
+    layout = None if cache is None else kv_layout(cfg)
+    ka, kz = (0, nkv) if layout in ("hd", "whole") else (klo, khi)
+    xc = tp.enter(x)
+    b, s, _ = xc.shape
 
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
-    if "bq" in params:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
-    q = q.reshape(b, s, nq, hd)
-    k = k.reshape(b, s, nkv, hd)
-    v = v.reshape(b, s, nkv, hd)
-
+    def proj(w, bias, n, a, z):
+        y = xc @ tp.used_part(params[w], -1, n * hd, a * hd, z * hd)
+        if bias in params:
+            y = y + tp.used_part(params[bias], -1, n * hd, a * hd, z * hd)
+        return y.reshape(b, s, z - a, hd)
+    q = proj("wq", "bq", nq, lo, hi)
+    k = proj("wk", "bk", nkv, ka, kz)
+    v = proj("wv", "bv", nkv, ka, kz)
     if not cfg.nope:
         if positions is None:
             positions = torch.arange(s, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    q_offset = 0
-    new_cache = cache
+    q_offset, new_cache, out = 0, cache, None
     if cache is not None:
         idx = int(cache_index or 0)
-        ck = cache["k"].clone()
-        cv = cache["v"].clone()
-        ck[:, idx:idx + s] = k.to(ck.dtype)
-        cv[:, idx:idx + s] = v.to(cv.dtype)
+        ck, cv = cache["k"].clone(), cache["v"].clone()
+        if layout == "hd":
+            d_lo, d_hi = tp.bounds(hd)
+            ck[:, idx:idx + s] = k[..., d_lo:d_hi].to(ck.dtype)
+            cv[:, idx:idx + s] = v[..., d_lo:d_hi].to(cv.dtype)
+        else:
+            ck[:, idx:idx + s] = k.to(ck.dtype)
+            cv[:, idx:idx + s] = v.to(cv.dtype)
         new_cache = {"k": ck, "v": cv}
-        k, v = ck, cv
-        q_offset = idx
-
-    n_rep = nq // nkv
-    k = _repeat_kv(k, n_rep)
-    v = _repeat_kv(v, n_rep)
-    out = _attend(cfg, q, k, v, causal=causal, q_offset=q_offset,
-                  flash=cache is None)
-    out = out.reshape(b, s, nq * hd) @ params["wo"]
-    return out, new_cache
+        if layout == "hd" and idx:
+            out = _attend_split_dims(cfg, _gather_heads(q, nq), ck, cv,
+                                     idx)[:, :, lo:hi]
+        elif layout != "hd":
+            k, v, q_offset = ck, cv, idx
+    if out is None:
+        out = _attend(cfg, q, kv_for_heads(k, lo, hi, n_rep, ka),
+                      kv_for_heads(v, lo, hi, n_rep, ka), causal=causal,
+                      q_offset=q_offset, flash=cache is None)
+    out = out.reshape(b, s, (hi - lo) * hd) @ tp.used_part(
+        params["wo"], -2, nq * hd, lo * hd, hi * hd)
+    return tp.leave(out), new_cache
 
 
 def _attend(cfg: ModelConfig, q, k, v, *, causal: bool, q_offset: int,
@@ -292,69 +303,6 @@ def _gather_heads(x, n: int):
     idx = [r * width + j for r in range(m)
            for j in range(tp.bounds(n, r)[1] - tp.bounds(n, r)[0])]
     return full[:, :, idx]
-
-
-def _attention_tp(params, cfg: ModelConfig, x, *, positions, causal: bool,
-                  cache: Optional[dict], cache_index: Optional[int]):
-    """``apply_attention`` on this model rank's q heads [lo, hi): q for
-    them, k and v for the kv heads they read (every kv head where the
-    cache holds them all or splits the head dim), the output projection's
-    rows of those heads, summed over the model group.
-
-    The cache is this rank's part as ``init_kv_cache`` shapes it: its kv
-    heads, or (the specs' fallback where the kv heads do not divide) its
-    part of every head's dims, or the whole. A head-dim-split cache is
-    written with this rank's dims; prefill (``cache_index`` 0) attends
-    over the new keys, and a later step contracts q . k over the split
-    dims with an all-reduce of the partial scores and all-gathers the
-    output's dims."""
-    hd = cfg.resolved_head_dim
-    nq, nkv = cfg.n_heads, cfg.n_kv_heads
-    n_rep = nq // nkv
-    lo, hi = head_bounds(nq)
-    klo, khi = lo // n_rep, (hi - 1) // n_rep + 1
-    layout = None if cache is None else kv_layout(cfg)
-    ka, kz = (0, nkv) if layout in ("hd", "whole") else (klo, khi)
-    xc = tp.enter(x)
-    b, s, _ = xc.shape
-
-    def proj(w, bias, n, a, z):
-        y = xc @ tp.used_part(params[w], -1, n * hd, a * hd, z * hd)
-        if bias in params:
-            y = y + tp.used_part(params[bias], -1, n * hd, a * hd, z * hd)
-        return y.reshape(b, s, z - a, hd)
-    q = proj("wq", "bq", nq, lo, hi)
-    k = proj("wk", "bk", nkv, ka, kz)
-    v = proj("wv", "bv", nkv, ka, kz)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-
-    q_offset, new_cache, out = 0, cache, None
-    if cache is not None:
-        idx = int(cache_index or 0)
-        ck, cv = cache["k"].clone(), cache["v"].clone()
-        if layout == "hd":
-            d_lo, d_hi = tp.bounds(hd)
-            ck[:, idx:idx + s] = k[..., d_lo:d_hi].to(ck.dtype)
-            cv[:, idx:idx + s] = v[..., d_lo:d_hi].to(cv.dtype)
-        else:
-            ck[:, idx:idx + s] = k.to(ck.dtype)
-            cv[:, idx:idx + s] = v.to(cv.dtype)
-        new_cache = {"k": ck, "v": cv}
-        if layout == "hd" and idx:
-            out = _attend_split_dims(cfg, _gather_heads(q, nq), ck, cv,
-                                     idx)[:, :, lo:hi]
-        elif layout != "hd":
-            k, v, q_offset = ck, cv, idx
-    if out is None:
-        out = _attend(cfg, q, kv_for_heads(k, lo, hi, n_rep, ka),
-                      kv_for_heads(v, lo, hi, n_rep, ka), causal=causal,
-                      q_offset=q_offset, flash=cache is None)
-    out = out.reshape(b, s, (hi - lo) * hd) @ tp.used_part(
-        params["wo"], -2, nq * hd, lo * hd, hi * hd)
-    return tp.leave(out), new_cache
 
 
 def head_bounds(n: int):
@@ -537,7 +485,7 @@ def apply_mlp(params, cfg: ModelConfig, x, d_ff: Optional[int] = None):
     split (column- then row-parallel), summed over the model group. Whole
     leaves run on the stream as it is (under sequence parallelism its
     slice, the leaves read through ``tp.seq_leaf``)."""
-    if tp.size() > 1 and params["wi"].shape[-1] != (d_ff or cfg.d_ff):
+    if params["wi"].shape[-1] != (d_ff or cfg.d_ff):
         return tp.leave(_mlp(params, tp.enter(x)))
     return _mlp({k: tp.seq_leaf(w) for k, w in params.items()}, x)
 
@@ -642,7 +590,7 @@ def cross_entropy(logits, labels, cfg: ModelConfig, positions=None):
 
 def _cross_entropy(logits, labels, cfg: ModelConfig, positions=None):
     vp = logits.shape[-1]
-    if tp.size() > 1 and vp != cfg.vocab_padded:
+    if vp != cfg.vocab_padded:
         return _vocab_parallel_cross_entropy(logits, labels, cfg)
     logits = logits.float()
     if vp > cfg.vocab_size:  # no masked copy when nothing is padded

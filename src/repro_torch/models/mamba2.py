@@ -6,10 +6,12 @@ masked attention-like matmul (quadratic in the chunk length only),
 inter-chunk work is a linear recurrence over per-chunk states. Decode is
 the O(1)-per-token recurrent form.
 
-Without a cache and under ``cfg.use_ssd_kernel`` the block runs the
-hand-written SSD kernel (``kernels.ops.ssd_scan``); otherwise
-``ssd_chunked`` below, which also takes a carried state. Layers are stacked
-on a leading axis as in the reference and unbound once per forward.
+One block body (``mamba_mixer``) serves scoring, prefill and decode: one
+position with a cache takes the recurrence; without a cache and under
+``cfg.use_ssd_kernel`` the block runs the hand-written SSD kernel
+(``kernels.ops.ssd_scan``); otherwise ``ssd_chunked`` below, which also
+takes a carried state. Layers are stacked on a leading axis as in the
+reference and unbound once per forward.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import torch.nn.functional as F
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
-from repro_torch.models.transformer import remat_wrap, run_layers, stack_init
+from repro_torch.models.transformer import (remat_wrap, run_layers,
+                                            stack_init, stacked_zeros)
 
 # ---------------------------------------------------------------------------
 # causal depthwise conv1d
@@ -204,7 +207,12 @@ def mamba_mixer(bp, cfg: ModelConfig, h, cache=None):
     projections, the convolutions (with their biases under
     ``cfg.ssm_conv_bias``), the SSD layer, the gated norm and the output
     projection. Returns (out, new_cache); a model whose residual branch is
-    scaled (granite-4.0-h's ``residual_multiplier``) adds it itself."""
+    scaled (granite-4.0-h's ``residual_multiplier``) adds it itself.
+
+    The SSD layer is chosen from the inputs: one position with a cache
+    (decode) takes the recurrence (``ssd_decode_step``); no cache under
+    ``cfg.use_ssd_kernel``, the SSD kernel; otherwise ``ssd_chunked``
+    from the cache's state (or zeros)."""
     split = _split(bp, cfg)
     nh, p, n = bp["A_log"].shape[-1], cfg.ssm_headdim, cfg.ssm_state
     z, x, BC, dt, A = _in_proj(bp, cfg, h, split)
@@ -219,8 +227,10 @@ def mamba_mixer(bp, cfg: ModelConfig, h, cache=None):
     B, C = torch.split(BC, n, dim=-1)
 
     x = x.reshape(b, s, nh, p)
-    if cfg.use_ssd_kernel and cache is None:
-        # the SSD chunk-scan kernel (scoring / prefill-from-scratch path)
+    if cache is not None and s == 1:
+        y, S = ssd_decode_step(cache["ssm"], x[:, 0], dt[:, 0], A, B[:, 0],
+                               C[:, 0], bp["D"])
+    elif cfg.use_ssd_kernel and cache is None:
         from repro_torch.kernels import ops as kops
         y, S = kops.ssd_scan(x, dt, A, B, C, bp["D"],
                              chunk=min(cfg.ssm_chunk, s))
@@ -232,25 +242,6 @@ def mamba_mixer(bp, cfg: ModelConfig, h, cache=None):
     y = _gated_norm(y, z, bp["gate_ln"]["scale"], cfg, split)
     return _out_proj(bp, y, split), {"conv_x": new_cx, "conv_BC": new_cbc,
                                      "ssm": S}
-
-
-def apply_mamba_decode(bp, cfg: ModelConfig, h, cache):
-    """Single-token path (s == 1) using the recurrent form."""
-    b = h.shape[0]
-    split = _split(bp, cfg)
-    nh, p, n = bp["A_log"].shape[-1], cfg.ssm_headdim, cfg.ssm_state
-    z, x, BC, dt, A = _in_proj(bp, cfg, h, split)
-    x, new_cx = causal_conv(x, bp["conv_x"], cache["conv_x"],
-                            bp.get("conv_x_bias"))
-    BC, new_cbc = causal_conv(BC, bp["conv_BC"], cache["conv_BC"],
-                              bp.get("conv_BC_bias"))
-    B, C = torch.split(BC, n, dim=-1)
-    y, S = ssd_decode_step(cache["ssm"], x[:, 0].reshape(b, nh, p),
-                           dt[:, 0], A, B[:, 0], C[:, 0], bp["D"])
-    y = y.reshape(b, 1, nh * p)
-    y = _gated_norm(y, z, bp["gate_ln"]["scale"], cfg, split)
-    return h + _out_proj(bp, y, split), {"conv_x": new_cx,
-                                         "conv_BC": new_cbc, "ssm": S}
 
 
 def init_block_cache(cfg: ModelConfig, batch: int, device):
@@ -285,12 +276,12 @@ def init(normal, cfg: ModelConfig, device):
     }
 
 
-def forward(params, cfg: ModelConfig, tokens, *, cache=None, decode=False):
+def forward(params, cfg: ModelConfig, tokens, *, cache=None):
     """Returns (logits, new cache stacked on the layer axis, or None when
-    no cache was given)."""
+    no cache was given). Each block's SSD layer follows from its inputs
+    (``mamba_mixer``): one token with a cache, as ``decode_step`` calls
+    it, takes the recurrence."""
     def apply(h, bp, c):
-        if decode:
-            return apply_mamba_decode(bp, cfg, h, c)
         return apply_mamba_block(bp, cfg, h, cache=c)
 
     h = L.embed_tokens(params["embed"], tokens, cfg)
@@ -309,9 +300,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int = 0,
                device="cuda"):
     """Zero conv and SSM states stacked on the layer axis (an SSM cache does
     not grow with the sequence, so ``max_seq`` is unused)."""
-    c = init_block_cache(cfg, batch, device)
-    return {k: torch.zeros((cfg.n_layers,) + x.shape, dtype=x.dtype,
-                           device=x.device) for k, x in c.items()}
+    return stacked_zeros(init_block_cache(cfg, batch, device), cfg.n_layers)
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_seq: Optional[int] = None):
@@ -320,5 +309,7 @@ def prefill(params, cfg: ModelConfig, tokens, max_seq: Optional[int] = None):
 
 
 def decode_step(params, cfg: ModelConfig, cache, pos, tokens):
-    """tokens: (b, 1); ``pos`` is unused (the state carries the position)."""
-    return forward(params, cfg, tokens, cache=cache, decode=True)
+    """tokens: (b, 1); ``pos`` is unused (the state carries the position).
+    One token with a cache: every block takes the recurrence
+    (``mamba_mixer``)."""
+    return forward(params, cfg, tokens, cache=cache)

@@ -116,7 +116,7 @@ def _moe_group(p, cfg: ModelConfig, xt):
     gate_idx, pos, keep, gates, cap, aux = _route(p, cfg, xt)
     ex = p["experts"]
     n_ex = ex["wi"].shape[0]                     # experts this rank runs
-    split = tp.size() > 1 and (n_ex != E or ex["wi"].shape[-1] != cfg.d_ff)
+    split = n_ex != E or ex["wi"].shape[-1] != cfg.d_ff
     # row of each (token, slot) in a flat (n_ex * cap + 1, d) buffer: its
     # expert's place, or the spare last row when dropped (no boolean
     # indexing, so the host never waits on the device)

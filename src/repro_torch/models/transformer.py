@@ -96,6 +96,13 @@ def stack_init(fn, n: int):
     return T.unflatten(first, stacked)
 
 
+def stacked_zeros(cache: dict, n: int) -> dict:
+    """Zeros of a per-layer cache's leaves stacked on a new layer axis of
+    n, each (n,) + its shape, in its dtype and on its device."""
+    return {k: torch.zeros((n,) + x.shape, dtype=x.dtype, device=x.device)
+            for k, x in cache.items()}
+
+
 def apply_block(bp, cfg: ModelConfig, h, *, positions=None, cache=None,
                 cache_index=None):
     a, new_cache = L.apply_attention(
@@ -178,9 +185,8 @@ def loss_fn(params, cfg: ModelConfig, batch):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
-    c = L.init_kv_cache(cfg, batch, max_seq, device)
-    return {k: torch.zeros((cfg.n_layers,) + x.shape, dtype=x.dtype,
-                           device=x.device) for k, x in c.items()}
+    return stacked_zeros(L.init_kv_cache(cfg, batch, max_seq, device),
+                         cfg.n_layers)
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_seq: Optional[int] = None):

@@ -191,6 +191,22 @@ def test_prefill_and_four_decode_steps_match_reference():
                                    rtol=1e-4, atol=1e-5)
 
 
+def test_one_token_prefill_takes_the_recurrence():
+    """A prompt of one token has a cache and one position, so each block
+    takes the recurrence (``ssd_decode_step``): its logits and cache
+    against the reference's prefill, which runs its chunked form."""
+    jcfg, cfg, jparams, params = _models()
+    batch = reduced_batch(cfg, 2, 1)
+    logits, cache = registry.prefill(
+        params, cfg, {"tokens": T.from_numpy(batch, "cpu")["tokens"]})
+    jlogits, jcache = jreg.prefill(jparams, jcfg, batch)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               rtol=1e-4, atol=1e-5)
+    for k in ("conv_x", "conv_BC", "ssm"):
+        np.testing.assert_allclose(cache[k].numpy(), np.asarray(jcache[k]),
+                                   rtol=1e-4, atol=1e-5)
+
+
 def test_decode_after_prefill_matches_full_forward():
     """prefill(tokens[:, :-k]) then k decode steps == prefill(tokens)."""
     _, cfg, _, params = _models()

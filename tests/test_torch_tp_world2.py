@@ -14,7 +14,8 @@ init(key 0) of a reduced config:
   size 1: the last position's logits of prefill and of 3 teacher-forced
   decode steps (rtol 1e-4 / atol 5e-5), the caches gathered back (qwen2.5
   splits its one KV head's dims: the decode contracts them with an
-  all-reduce);
+  all-reduce), and of qwen2.5 without the rotary embedding (``nope``,
+  an option of the port alone);
 - C1: one step of ``hier``, ``hier1`` and ``allreduce``, ZeRO-3 off and
   on, on (data 2) with rows 0-1 masked from position 2 on: the loss equals
   the reference's global-batch loss, 7.416166, at the curve's rtol 1e-4,

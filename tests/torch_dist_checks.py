@@ -290,7 +290,11 @@ def suite_train(rank, world, workdir):
 # rows make the same groups as the global batch (with the default group of
 # 4096 every rank would route its rows as one group, and the reference the
 # whole batch as one). Reduced qwen2.5-3b and phi4-mini have one 32-wide
-# KV head: wk / wv split inside it.
+# KV head: wk / wv split inside it. "qwen2.5-3b/nope" attends without
+# the rotary embedding, an option the reference does not have: it runs on
+# qwen2.5-3b's init, in the prefill and serve steps against world size 1
+# only (its one-KV-head cache splits the head dim, so its decode takes the
+# split-dims contraction).
 TP_CASES = {
     "olmo-1b": ("olmo-1b", {}),
     "qwen2.5-3b": ("qwen2.5-3b", {}),
@@ -300,6 +304,7 @@ TP_CASES = {
     "qwen2-moe-a2.7b/e6": ("qwen2-moe-a2.7b", {"n_experts": 6}),
     "qwen2-moe-a2.7b/g32": ("qwen2-moe-a2.7b", {"moe_group": 32}),
     "mamba2-2.7b": ("mamba2-2.7b", {}),
+    "qwen2.5-3b/nope": ("qwen2.5-3b", {"nope": True}),
 }
 TP_MESHES = {
     "1x2": ["olmo-1b", "qwen2.5-3b", "phi4-mini-3.8b", "qwen2-moe-a2.7b",
@@ -343,7 +348,8 @@ TP_BATCH, TP_SEQ = 4, 32          # configs.reduced_batch
 # the steps on "1x2": prefill TP_PREFILL tokens into a TP_SEQ cache, then
 # teacher-forced decode of the next TP_DECODE
 TP_PREFILL, TP_DECODE = 24, 3
-TP_STEP_CASES = ["olmo-1b", "qwen2.5-3b", "qwen2-moe-a2.7b", "mamba2-2.7b"]
+TP_STEP_CASES = ["olmo-1b", "qwen2.5-3b", "qwen2-moe-a2.7b", "mamba2-2.7b",
+                 "qwen2.5-3b/nope"]
 # the dry run's FLOPs at world 2 against a real rank's
 TP_DRYRUN_ARCHS = ["olmo-1b", "qwen2-moe-a2.7b", "mamba2-2.7b", "zamba2-7b",
                    "llama-3.2-vision-90b", "seamless-m4t-medium"]

@@ -32,10 +32,12 @@ GATE = 0.5
 def _program(case):
     """(arch, the overrides) of ``case``'s one-device program: without
     ``seq_shard``, whose constraint has no mesh to name on one device and
-    changes no number."""
+    changes no number, and without ``nope``, which the reference does not
+    have (such a case takes its init alone: it does not change the
+    init)."""
     arch, over = dc.TP_CASES[case]
     return arch, tuple(sorted((k, v) for k, v in over.items()
-                              if k != "seq_shard"))
+                              if k not in ("seq_shard", "nope")))
 
 
 def jax_config(case):
