@@ -54,7 +54,10 @@ non-zero before the result lines:
      through the SSD kernel on 8 x 2048 tokens (exactly 64 x 3 launches,
      all on the tensor-core route), then serving,
      ServingEngine.serve_batch on 4 prompts of 2048 tokens with 32 new
-     tokens each;
+     tokens each (the prefill from the zero state through the SSD kernel:
+     exactly 64 launches); then the same requests served again with every
+     SSD call of the prefill held against its plain version
+     (held_against_plain);
  10. timing of the SSD scan (both routes at the scoring shape, each with
      its achieved TFLOP/s on its own FLOP count and its share of the
      bound) and aggregate_and_apply as in phase 6;
@@ -80,7 +83,9 @@ non-zero before the result lines:
      4 x 4096 tokens (exactly 13 x 3 flash and 81 x 3 SSD launches, all on
      the tensor cores), then serving 4 prompts of 4096 tokens with 32 new
      tokens each (the first decode step writes ring slot 0: the window's
-     ring wraps);
+     ring wraps; the prefill's 81 SSD layers through the kernel); then the
+     same requests again with every kernel call of the prefill held
+     against its plain version, as in phase 9;
  14. qwen2-moe-a2.7b at full width in bf16 (24 layers, 60 routed experts
      top-4 and 4 shared, seed 0, the flash kernel): 3 scoring evaluations
      on 8 x 2048 tokens (exactly 24 x 3 flash launches, all on the tensor
@@ -179,7 +184,16 @@ non-zero before the result lines:
      mistral-large-123b decode_32k, zamba2-7b long_500k and arctic-480b
      train_4k traced on the 256-rank production mesh (fake process
      group, fake CUDA tensors), each one's terms and trace seconds
-     (per-rank predictions, not card measurements);
+     (per-rank predictions, not card measurements); then full-width
+     mamba2-2.7b's prefill step (the SSD kernel on) at PREFILL_BATCH x
+     PREFILL_SEQ on a one-rank mesh, traced and run: the predicted FLOPs
+     equal the measured ones, smlt::ssd_scan's among them (ssd_flops, one
+     call a layer, all on wgmma); the step run again with each SSD call
+     held against plain_ssd_scan (held_against_plain: the state at
+     ssd_tol, y within SSD_BF16_REL_NORM), its logits equal to the counted
+     run's; and registry.prefill at that shape
+     timed on each path, the SSD kernel and ssd_chunked (host clock
+     around a synchronised call, median of PREFILL_TIMED after a warm-up);
  31. the prefill and serve steps at full width: olmo-1b in bf16 through
      make_prefill_step and make_serve_step (fsdp=True) over a one-rank
      mesh, 4 prompts of 2048 then 32 greedy tokens: the tokens equal
@@ -379,6 +393,9 @@ DECODE_GRAPH_LENS = (256, 512, 1024, 2048)
 DECODE_GRAPH_TOKENS = 32
 # phase 30: the dry run's predicted peak against max_memory_allocated
 DRYRUN_PEAK_RTOL = 0.15
+# phase 30: mamba2-2.7b's prefill step, the prefill-long cell's batch
+PREFILL_BATCH, PREFILL_SEQ = 8, 4096
+PREFILL_TIMED = 3
 # phase 30: the remat step against the same step with remat off (the
 # ZeRO-3 gather inside the checkpoint, again in the backward). The f32
 # first moments, (1 - b1) times the clipped gradient, hold the gradients
@@ -1010,8 +1027,9 @@ def run_scoring(cfg, params, device, batch_size: int, seq: int, evals: int,
 
 
 def run_serving(cfg, params, device, n_requests: int, prompt_len: int,
-                new_tokens: int):
-    """ServingEngine.serve_batch; returns (completions, stats, launches)."""
+                new_tokens: int, held=None):
+    """ServingEngine.serve_batch; returns (completions, stats, launches).
+    With a list ``held`` the batch runs under held_against_plain(held)."""
     import numpy as np
     import torch
     from repro_torch.serving import Request, ServingEngine
@@ -1022,7 +1040,9 @@ def run_serving(cfg, params, device, n_requests: int, prompt_len: int,
     if device.type == "cuda":
         torch.cuda.synchronize()
     zero_counts()
-    out = engine.serve_batch(reqs)
+    with held_against_plain(held) if held is not None \
+            else contextlib.nullcontext():
+        out = engine.serve_batch(reqs)
     launches = kernel_counts()
     require([c.rid for c in out] == list(range(n_requests)),
             "completions out of order")
@@ -1445,13 +1465,15 @@ def check_cross_decode(cfg, params, batch):
 
 
 def run_family(cfg, device, n_params: int, batch_size: int, seq: int,
-               hold_first: bool = False):
+               hold_first: bool = False, hold_serve: bool = False):
     """One full-width model through the port's entry points: SCORE_EVALS
     scoring evaluations on batch_size x seq tokens, then ServingEngine on
     SERVE_REQUESTS prompts of seq tokens. Checks the parameter count,
     every launch count and the peaks (under 80 GB); with ``hold_first``
     every kernel call of the first evaluation is held against its plain
-    version (held_against_plain). Returns a summary."""
+    version (held_against_plain), and with ``hold_serve`` every kernel
+    call of the serving prefill, in a second, untimed serving of the same
+    requests. Returns a summary."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
@@ -1495,9 +1517,11 @@ def run_family(cfg, device, n_params: int, batch_size: int, seq: int,
     torch.cuda.reset_peak_memory_stats()
     # the hybrid's prefill runs its shared block's attention without a
     # cache (the ring is filled from k and v apart), so through the flash
-    # kernel; the MoE prefill attends through its KV cache
+    # kernel; the MoE prefill attends through its KV cache. A prefill
+    # starts from the zero state, so each Mamba2 layer runs the SSD kernel
     prefill_flash = attention_sites(cfg) if cfg.family == "hybrid" \
         and "flash" in flags else 0
+    prefill_ssd = cfg.n_layers if "ssd" in flags else 0
     out, stats, serve_l = run_serving(cfg, params, device, SERVE_REQUESTS,
                                       seq, SERVE_NEW_TOKENS)
     serve_peak = torch.cuda.max_memory_allocated()
@@ -1508,12 +1532,30 @@ def run_family(cfg, device, n_params: int, batch_size: int, seq: int,
         f"s ({SERVE_REQUESTS * seq / stats['prefill_s']!r} tokens/s), decode "
         f"{stats['decode_s']!r} s ({per_tok_ms!r} ms per token per request); "
         f"peak memory {serve_peak} bytes ({serve_peak / 2**30:.2f} GiB)")
-    want_serve = want_launches(flash=prefill_flash)
+    want_serve = want_launches(flash=prefill_flash, ssd=prefill_ssd)
     log(f"  serving launches {serve_l}, expected {want_serve}; first "
         f"request's tokens {out[0].tokens.tolist()}")
     require(serve_l == want_serve,
             f"serving launch counts {serve_l} != {want_serve}")
     require(max(score_peak, serve_peak) < 80e9, "a peak of 80 GB or more")
+    if hold_serve:
+        held = []
+        again, _, _ = run_serving(cfg, params, device, SERVE_REQUESTS, seq,
+                                  SERVE_NEW_TOKENS, held=held)
+        n_held = {}
+        for name, _ in held:
+            n_held[name] = n_held.get(name, 0) + 1
+        want_held = {k: v for k, v in (("flash_attention", prefill_flash),
+                                       ("ssd_scan", prefill_ssd)) if v}
+        same = all(a.tokens.tolist() == b.tokens.tolist()
+                   for a, b in zip(again, out))
+        log(f"  the serving prefill held against the plain versions: calls "
+            f"{n_held}, largest relative norm err "
+            f"{max(r for _, r in held):.3e}; tokens equal the timed "
+            f"serving's: {same}")
+        require(n_held == want_held, f"serving prefill calls held {n_held}, "
+                f"want {want_held}")
+        del again
     if cfg.family == "hybrid":
         ring = hybrid.ring_size(cfg, seq + SERVE_NEW_TOKENS)
         require(ring == cfg.sliding_window and seq % ring == 0,
@@ -1953,6 +1995,93 @@ def compare_remat(cfg, shape, mesh, params, device) -> dict:
                 update_rel_norm=math.sqrt(diff_sq / upd_sq),
                 params_differing=differ,
                 params=sum(x.numel() for x in T.leaves(params)))
+
+
+def check_prefill_dryrun(device, batch_size: int, seq: int):
+    """Phase 30: the dry run of full-width mamba2-2.7b's prefill step with
+    the SSD kernel on, one-rank mesh, fake CUDA tensors, against the same
+    step run for real under FlopCounterMode; then that step again with
+    every kernel call held against its plain version (held_against_plain),
+    its logits equal to the counted run's. Returns (prediction, measured
+    FLOPs, smlt::ssd_scan's share of them and its calls, the FLOPs
+    ssd_flops gives a call, launches, SSD routes, the held calls)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_custom_mesh, process_group
+    from repro_torch.models import registry
+    from repro_torch.models.base import InputShape
+    shape = InputShape(f"prefill_{batch_size}x{seq}", seq, batch_size,
+                       "prefill")
+    on = {"use_ssd_kernel": True}
+    pred = D.lower_one("mamba2-2.7b", shape, multi_pod=False,
+                       mesh_shape="1x1", overrides=on, device=device.type)
+    cfg = D.dryrun_config("mamba2-2.7b", shape, overrides=on)
+    with process_group(device):
+        mesh = make_custom_mesh("1x1", device.type)
+        step = D.make_step(cfg, shape, mesh)
+        args = D.step_args(step, cfg, shape, device=device,
+                           init=lambda p: registry.init(0, cfg, device))
+        torch.cuda.synchronize()
+        zero_counts()
+        with FlopCounterMode(display=False) as flops:
+            out = step(*args)
+        torch.cuda.synchronize()
+        launches, routes = kernel_counts(), dict(ssd.ROUTE_LAUNCHES)
+        require(bool(out[0].isfinite().all()), "prefill logits not finite")
+        held = []
+        with held_against_plain(held):
+            again = step(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(again[0], out[0]), "the held prefill's logits "
+                "differ from the counted one's")
+        del out, again, args, step
+    torch.cuda.empty_cache()
+    ssd_op = flops.get_flop_counts()["Global"].get(
+        torch.ops.smlt.ssd_scan, 0)
+    per_call = ssd.ssd_flops(
+        (batch_size, seq, cfg.ssm_nheads, cfg.ssm_headdim), None, None,
+        (batch_size, seq, cfg.ssm_state), None, None,
+        min(cfg.ssm_chunk, seq))
+    return (pred, flops.get_total_flops(), ssd_op, per_call, launches,
+            routes, held)
+
+
+def time_prefill_paths(device, batch_size: int, seq: int) -> dict:
+    """Phase 30: full-width mamba2-2.7b's ``registry.prefill`` at
+    batch_size x seq, seed-0 weights and tokens, through the SSD kernel
+    and through ``ssd_chunked``: seconds of each of PREFILL_TIMED calls
+    after one warm-up (host clock around a synchronised call), and each
+    path's peak memory."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import registry
+    cfg = ARCHS["mamba2-2.7b"]
+    params = registry.init(0, cfg, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (batch_size, seq), generator=gen,
+                         device=device, dtype=torch.int32)
+    out = {}
+    for name, kernel in (("kernel", True), ("chunked", False)):
+        c = cfg.replace(use_ssd_kernel=kernel)
+        secs = []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            for i in range(PREFILL_TIMED + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                registry.prefill(params, c, {"tokens": toks})
+                torch.cuda.synchronize()
+                if i:
+                    secs.append(time.perf_counter() - t0)
+        out[name] = dict(seconds=secs, peak=torch.cuda.max_memory_allocated(),
+                         ms_per_ktok=1e6 * statistics.median(secs)
+                         / (batch_size * seq))
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_production_traces(device):
@@ -3549,9 +3678,10 @@ def main() -> int:
     log(f"[9] slice 2: {scfg.arch_id} {scfg.n_layers} layers d_model "
         f"{scfg.d_model}, {scfg.ssm_nheads} heads of {scfg.ssm_headdim}, "
         f"state {scfg.ssm_state}, chunk {scfg.ssm_chunk}, bf16, random "
-        "weights from seed 0; nothing cut (prefill runs the plain chunked "
-        "SSD from a zero cache, decode the recurrence)")
-    mamba = run_family(scfg, device, 2_702_296_576, GLOBAL_BATCH, SEQ)
+        "weights from seed 0; nothing cut (prefill runs the SSD kernel from "
+        "the zero state, decode the recurrence)")
+    mamba = run_family(scfg, device, 2_702_296_576, GLOBAL_BATCH, SEQ,
+                       hold_serve=True)
     score_launches = mamba["score_launches"]
     serve_launches = mamba["serve_launches"]
 
@@ -3601,7 +3731,8 @@ def main() -> int:
         f"{zcfg.n_heads} heads of {zcfg.resolved_head_dim}, window "
         f"{zcfg.sliding_window}; bf16, random weights from seed 0; nothing "
         "cut")
-    zamba = run_family(zcfg, device, 6_750_539_856, HYBRID_BATCH, HYBRID_SEQ)
+    zamba = run_family(zcfg, device, 6_750_539_856, HYBRID_BATCH, HYBRID_SEQ,
+                       hold_serve=True)
 
     qcfg = moe_arch.replace(use_flash_kernel=True)
     log(f"[14] slice 5: {qcfg.arch_id} {qcfg.n_layers} layers d_model "
@@ -3846,6 +3977,37 @@ def main() -> int:
             f"{res['collective_bytes']!r}, collectives {res['collectives']}, "
             f"memory {res['memory']}, params {res['params']}, trace_s "
             f"{res['trace_s']}")
+    p_pred, p_flops, p_ssd, p_call, p_launches, p_routes, p_held = \
+        check_prefill_dryrun(device, PREFILL_BATCH, PREFILL_SEQ)
+    n_ssm = ssm.n_layers
+    log(f"  {ssm.arch_id} prefill step {PREFILL_BATCH} x {PREFILL_SEQ}, the "
+        f"SSD kernel on, one-rank mesh: predicted flops {p_pred['flops']!r} "
+        f"(trace {p_pred['trace_s']} s), measured ({card}) {p_flops!r}; "
+        f"smlt::ssd_scan {p_ssd!r} ({n_ssm} x {p_call!r}); launches "
+        f"{p_launches}, SSD routes {p_routes}")
+    require(p_pred["flops"] == p_flops,
+            f"predicted prefill flops {p_pred['flops']!r} != measured "
+            f"{p_flops!r}")
+    require(p_ssd == n_ssm * p_call, f"smlt::ssd_scan counted {p_ssd!r}, "
+            f"want {n_ssm} x {p_call!r}")
+    require(p_launches == want_launches(ssd=n_ssm)
+            and p_routes == {"wgmma": n_ssm, "cuda_cores": 0},
+            f"prefill launches {p_launches}, routes {p_routes}: want "
+            f"{n_ssm} SSD launches, all on wgmma")
+    log(f"  the same step with its {len(p_held)} kernel calls held against "
+        f"plain_ssd_scan: relative norm errs of y "
+        f"{[float(f'{r:.3e}') for _, r in p_held]} (limit "
+        f"{SSD_BF16_REL_NORM})")
+    require([n for n, _ in p_held] == ["ssd_scan"] * n_ssm,
+            f"prefill calls held {[n for n, _ in p_held]}, want {n_ssm} "
+            "ssd_scan")
+    pt = time_prefill_paths(device, PREFILL_BATCH, PREFILL_SEQ)
+    log(f"  {ssm.arch_id} registry.prefill at {PREFILL_BATCH} x "
+        f"{PREFILL_SEQ} ({card}): SSD kernel {pt['kernel']['seconds']} s, "
+        f"{pt['kernel']['ms_per_ktok']:.2f} ms a ktok, peak "
+        f"{pt['kernel']['peak'] / 2**30:.2f} GiB; ssd_chunked "
+        f"{pt['chunked']['seconds']} s, {pt['chunked']['ms_per_ktok']:.2f} "
+        f"ms a ktok, peak {pt['chunked']['peak'] / 2**30:.2f} GiB")
 
     log(f"[31] the prefill and serve steps: {cfg.arch_id} bf16, "
         f"make_prefill_step + make_serve_step (fsdp=True), one-rank mesh, "

@@ -54,7 +54,11 @@ the expert products gave back: 0 in a dropless layer), one record each a
 layer, in ``dropless_moe``; ``serve.decode_replayed`` and
 ``serve.decode_eager`` (a batch's decode steps replayed as one captured
 CUDA graph and those run eagerly), one record each a batch, in
-``serving/engine.py::ServingEngine.serve_batch``.
+``serving/engine.py::ServingEngine.serve_batch``; ``ssd.kernel`` and
+``ssd.chunked`` (a Mamba2 block's SSD layer through the hand-written
+kernel, from the zero state, or through the plain chunked scan), one
+record of 1 a block call that takes either, in ``models/mamba2.py::
+mamba_mixer`` (the one-token recurrence records nothing).
 
 The records are kept in memory, at most ``CAP`` spans and ``CAP``
 counter records: past that the oldest are dropped, and ``dropped()``

@@ -7,9 +7,10 @@ site keeps its own KV cache. Attention uses a sliding window
 (cfg.sliding_window), so decode keeps a ring buffer of ``window`` keys per
 site: position t lives in slot t mod window.
 
-Without a cache the SSM layers take the SSD kernel under
-``cfg.use_ssd_kernel`` and the shared block's attention the flash kernel
-under ``cfg.use_flash_kernel`` (with the window), as in the SSM and dense
+Without a cache, and in a prefill from the zero state, the SSM layers
+take the SSD kernel under ``cfg.use_ssd_kernel``; without a cache the
+shared block's attention takes the flash kernel under
+``cfg.use_flash_kernel`` (with the window), as in the SSM and dense
 families.
 
 Under tensor parallelism the Mamba2 layers take their heads' parts as in
@@ -154,13 +155,14 @@ def _shared_block(params, cfg: ModelConfig, h, ring: int):
 
 
 def forward_full(params, cfg: ModelConfig, tokens, *, mamba_cache=None,
-                 collect_attn_kv: int = 0):
+                 collect_attn_kv: int = 0, from_zero: bool = False):
     """Scoring / prefill: groups of ``attn_every`` Mamba2 layers each
     followed by the shared block, then the remainder layers. Returns
     (logits, the new Mamba2 cache stacked on the layer axis or None, the
     ring caches stacked on the group axis or None). With
     ``collect_attn_kv`` > 0 each site's ring cache of that size is built
-    for the decode that follows."""
+    for the decode that follows; ``from_zero`` says that ``mamba_cache``
+    holds zeros (``mamba2.mamba_mixer``)."""
     h = L.embed_tokens(params["embed"], tokens, cfg)
     bps = T.unbind_layers(params["blocks"], cfg.n_layers)
     caches = (T.unbind_layers(mamba_cache, cfg.n_layers)
@@ -169,7 +171,8 @@ def forward_full(params, cfg: ModelConfig, tokens, *, mamba_cache=None,
     def group(h, g_bps, g_caches):
         ncs = []
         for bp, c in zip(g_bps, g_caches):
-            h, nc = M.apply_mamba_block(bp, cfg, h, cache=c)
+            h, nc = M.apply_mamba_block(bp, cfg, h, cache=c,
+                                        from_zero=from_zero)
             ncs.append(nc)
         h, kv = _shared_block(params, cfg, h, collect_attn_kv)
         return h, ncs, kv
@@ -184,7 +187,8 @@ def forward_full(params, cfg: ModelConfig, tokens, *, mamba_cache=None,
         new_m += ncs
         rings.append(kv)
     for bp, c in zip(bps[ng * per:], caches[ng * per:]):  # the remainder
-        h, nc = M.apply_mamba_block(T.gather_layer(bp), cfg, h, cache=c)
+        h, nc = M.apply_mamba_block(T.gather_layer(bp), cfg, h, cache=c,
+                                    from_zero=from_zero)
         new_m.append(nc)
     h = L.apply_norm(params["final_norm"], cfg, h)
     logits = L.unembed(params["embed"], cfg, h)
@@ -208,7 +212,7 @@ def prefill(params, cfg: ModelConfig, tokens, max_seq: Optional[int] = None):
     mcache = M.init_cache(cfg, b, device=tokens.device)
     logits, new_m, attn_kv = forward_full(
         params, cfg, tokens, mamba_cache=mcache,
-        collect_attn_kv=ring_size(cfg, max_seq or s))
+        collect_attn_kv=ring_size(cfg, max_seq or s), from_zero=True)
     return logits, {"mamba": new_m, "attn": attn_kv}
 
 

@@ -7,11 +7,12 @@ inter-chunk work is a linear recurrence over per-chunk states. Decode is
 the O(1)-per-token recurrent form.
 
 One block body (``mamba_mixer``) serves scoring, prefill and decode: one
-position with a cache takes the recurrence; without a cache and under
-``cfg.use_ssd_kernel`` the block runs the hand-written SSD kernel
-(``kernels.ops.ssd_scan``); otherwise ``ssd_chunked`` below, which also
-takes a carried state. Layers are stacked on a leading axis as in the
-reference and unbound once per forward.
+position with a cache takes the recurrence; with no state to carry (no
+cache, or a prefill's cache of zeros) and under ``cfg.use_ssd_kernel`` the
+block runs the hand-written SSD kernel (``kernels.ops.ssd_scan``);
+otherwise ``ssd_chunked`` below, which also takes a carried state. Layers
+are stacked on a leading axis as in the reference and unbound once per
+forward.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.spans import count
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
@@ -195,14 +197,16 @@ def _out_proj(bp, y, split: bool):
     return tp.leave(out) if split else out
 
 
-def apply_mamba_block(bp, cfg: ModelConfig, h, cache=None):
-    """cache: {"conv_x", "conv_BC", "ssm"} or None. Returns (h + the
-    mixer's output, new_cache)."""
-    out, new_cache = mamba_mixer(bp, cfg, h, cache)
+def apply_mamba_block(bp, cfg: ModelConfig, h, cache=None,
+                      from_zero: bool = False):
+    """cache: {"conv_x", "conv_BC", "ssm"} or None; ``from_zero`` as in
+    ``mamba_mixer``. Returns (h + the mixer's output, new_cache)."""
+    out, new_cache = mamba_mixer(bp, cfg, h, cache, from_zero)
     return h + out, new_cache
 
 
-def mamba_mixer(bp, cfg: ModelConfig, h, cache=None):
+def mamba_mixer(bp, cfg: ModelConfig, h, cache=None,
+                from_zero: bool = False):
     """The block without its residual add: the norm of ``h``, the input
     projections, the convolutions (with their biases under
     ``cfg.ssm_conv_bias``), the SSD layer, the gated norm and the output
@@ -210,9 +214,14 @@ def mamba_mixer(bp, cfg: ModelConfig, h, cache=None):
     scaled (granite-4.0-h's ``residual_multiplier``) adds it itself.
 
     The SSD layer is chosen from the inputs: one position with a cache
-    (decode) takes the recurrence (``ssd_decode_step``); no cache under
-    ``cfg.use_ssd_kernel``, the SSD kernel; otherwise ``ssd_chunked``
-    from the cache's state (or zeros)."""
+    (decode) takes the recurrence (``ssd_decode_step``); under
+    ``cfg.use_ssd_kernel``, no cache or ``from_zero`` (the caller built the
+    cache's states as zeros, as ``prefill`` does) takes the SSD kernel,
+    which starts from the zero state and returns the final f32 state;
+    otherwise ``ssd_chunked`` from the cache's state (or zeros). Each of
+    the last two counts a record of ``ssd.kernel`` or ``ssd.chunked``
+    (``core/spans.py``); the recurrence, which a captured decode step
+    runs, counts nothing."""
     split = _split(bp, cfg)
     nh, p, n = bp["A_log"].shape[-1], cfg.ssm_headdim, cfg.ssm_state
     z, x, BC, dt, A = _in_proj(bp, cfg, h, split)
@@ -230,11 +239,13 @@ def mamba_mixer(bp, cfg: ModelConfig, h, cache=None):
     if cache is not None and s == 1:
         y, S = ssd_decode_step(cache["ssm"], x[:, 0], dt[:, 0], A, B[:, 0],
                                C[:, 0], bp["D"])
-    elif cfg.use_ssd_kernel and cache is None:
+    elif cfg.use_ssd_kernel and (cache is None or from_zero):
         from repro_torch.kernels import ops as kops
+        count("ssd.kernel", 1)
         y, S = kops.ssd_scan(x, dt, A, B, C, bp["D"],
                              chunk=min(cfg.ssm_chunk, s))
     else:
+        count("ssd.chunked", 1)
         s0 = cache["ssm"] if cache is not None else None
         y, S = ssd_chunked(x, dt, A, B, C, bp["D"], cfg.ssm_chunk,
                            initial_state=s0)
@@ -276,13 +287,15 @@ def init(normal, cfg: ModelConfig, device):
     }
 
 
-def forward(params, cfg: ModelConfig, tokens, *, cache=None):
+def forward(params, cfg: ModelConfig, tokens, *, cache=None,
+            from_zero: bool = False):
     """Returns (logits, new cache stacked on the layer axis, or None when
     no cache was given). Each block's SSD layer follows from its inputs
     (``mamba_mixer``): one token with a cache, as ``decode_step`` calls
-    it, takes the recurrence."""
+    it, takes the recurrence; ``from_zero`` says that ``cache`` holds
+    ``init_cache``'s zeros, as ``prefill`` builds it."""
     def apply(h, bp, c):
-        return apply_mamba_block(bp, cfg, h, cache=c)
+        return apply_mamba_block(bp, cfg, h, cache=c, from_zero=from_zero)
 
     h = L.embed_tokens(params["embed"], tokens, cfg)
     h, new_cache = run_layers(h, params["blocks"], cache, cfg.n_layers,
@@ -304,8 +317,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int = 0,
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_seq: Optional[int] = None):
+    """The prompt from the zero state: under ``cfg.use_ssd_kernel`` each
+    block's SSD layer runs the kernel, whose final state is the cache's
+    ``ssm``."""
     cache = init_cache(cfg, tokens.shape[0], device=tokens.device)
-    return forward(params, cfg, tokens, cache=cache)
+    return forward(params, cfg, tokens, cache=cache, from_zero=True)
 
 
 def decode_step(params, cfg: ModelConfig, cache, pos, tokens):

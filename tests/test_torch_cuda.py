@@ -712,7 +712,8 @@ def mamba2_engine():
         pytest.skip("needs an NVIDIA GPU")
     from repro_torch.configs import ARCHS
     from repro_torch.serving import ServingEngine
-    cfg = ARCHS["mamba2-2.7b"].replace(n_layers=GRAPH_LAYERS)
+    cfg = ARCHS["mamba2-2.7b"].replace(n_layers=GRAPH_LAYERS,
+                                       use_ssd_kernel=True)
     assert (cfg.d_model, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state) \
         == (2560, 80, 64, 128)
     return ServingEngine(cfg, seed=0, device="cuda")
@@ -745,11 +746,14 @@ def _same_tokens(got, want):
         assert g.tokens.tolist() == w.tolist()
 
 
-@pytest.mark.parametrize("plen", [256, 512])
+@pytest.mark.parametrize("plen", [256, 300, 512, 4096])
 def test_graphed_decode_equals_eager_bit_for_bit(mamba2_engine, plen,
                                                  monkeypatch):
-    """Batch 8: the replayed step's logits equal the eager step's bit for
-    bit, step after step, and so do the engine's greedy tokens."""
+    """Batch 8, after a prefill through the SSD kernel (one record of
+    ``ssd.kernel`` a layer, nothing counted by the decode steps): the
+    replayed step's logits equal the eager step's bit for bit, step after
+    step, from the same prefill cache, and so do the engine's greedy
+    tokens."""
     import numpy as np
     from repro_torch.core import spans
     from repro_torch.models import registry
@@ -760,6 +764,7 @@ def test_graphed_decode_equals_eager_bit_for_bit(mamba2_engine, plen,
     with spans.recording():
         got = eng.serve_batch(reqs)
     assert [(c.name, c.value) for c in spans.counted()] == [
+        ("ssd.kernel", 1)] * GRAPH_LAYERS + [
         ("serve.decode_replayed", 7), ("serve.decode_eager", 0)]
     spans.clear()
     assert 8 in eng.graphs
@@ -821,3 +826,76 @@ def test_replacing_params_drops_the_graphs(mamba2_engine, monkeypatch):
     assert list(eng.graphs) == [8]
     _same_tokens(got, _eager_tokens(eng, reqs, monkeypatch))
     eng.params = old
+
+
+# ---------------------------------------------------------------------------
+# the prefill from the zero state through the SSD kernel (models/mamba2.py)
+# ---------------------------------------------------------------------------
+
+# the kernel prefill's logits and cache against their f32 twin: within
+# this many times the ssd_chunked bf16 prefill's own distance from it.
+# Random-weight Mamba2 layers amplify every bf16 rounding, the plain
+# path's as much (a layer-3 state of GRAPH_LAYERS lies 1.0e-2 to 1.5e-2
+# from the ssd_chunked prefill's on an H100), so the two bf16 paths are
+# held by their distance from f32, as chip_smoke.py's TP_BF16_NOISE_RATIO
+# holds a split program
+PREFILL_BF16_NOISE_RATIO = 1.25
+
+
+@pytest.mark.parametrize("plen", [256, 300, 4096])
+def test_kernel_prefill_matches_chunked_prefill(mamba2_engine, plen,
+                                                monkeypatch):
+    """mamba2-2.7b's widths at GRAPH_LAYERS, batch 8: the prefill from the
+    zero state launches the tensor-core SSD kernel once a layer, each call
+    held against its plain version on the model's own (padded) inputs at
+    the kernel's bf16 tolerances; the first layer's conv states equal the
+    ``ssd_chunked`` prefill's bit for bit (they precede the SSD) and its
+    state lies within the kernel's state tolerance of it; every cache
+    leaf of every layer and the logits lie no further from the f32
+    ``ssd_chunked`` prefill than PREFILL_BF16_NOISE_RATIO times the bf16
+    ``ssd_chunked`` prefill does."""
+    from repro_torch.core import tree as T
+    from repro_torch.models import registry
+    eng, cfg = mamba2_engine, mamba2_engine.cfg
+    gen = torch.Generator(device="cuda").manual_seed(plen)
+    toks = torch.randint(0, cfg.vocab_size, (8, plen), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    scan, calls = ssd.ssd_scan, []
+
+    def held(x, dt, A, B, C, D, *, chunk):
+        got = scan(x, dt, A, B, C, D, chunk=chunk)
+        _check_ssd(got, ssd.plain_ssd_scan(x, dt, A, B, C, D, chunk),
+                   torch.bfloat16, SSD_BF16_REL_NORM)
+        calls.append(x.shape)
+        return got
+
+    monkeypatch.setattr(ssd, "ssd_scan", held)
+    before = dict(ssd.ROUTE_LAUNCHES)
+    with torch.no_grad():
+        logits, cache = registry.prefill(eng.params, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        assert ssd.ROUTE_LAUNCHES == {
+            "wgmma": before["wgmma"] + cfg.n_layers,
+            "cuda_cores": before["cuda_cores"]}
+        assert len(calls) == cfg.n_layers
+        plain_logits, plain = registry.prefill(
+            eng.params, cfg.replace(use_ssd_kernel=False), {"tokens": toks})
+        f32 = cfg.replace(dtype=torch.float32, use_ssd_kernel=False)
+        f32_logits, f32_cache = registry.prefill(
+            T.tree_map(lambda p: p.float(), eng.params), f32,
+            {"tokens": toks})
+    # the ssd_chunked prefills launch no kernel
+    assert ssd.ROUTE_LAUNCHES["wgmma"] == before["wgmma"] + cfg.n_layers
+    assert cache["ssm"].dtype == torch.float32
+    for k in ("conv_x", "conv_BC"):
+        assert torch.equal(cache[k][0], plain[k][0]), k
+    torch.testing.assert_close(cache["ssm"][0], plain["ssm"][0], rtol=1e-2,
+                               atol=1e-2)
+    pairs = [("logits", logits, plain_logits, f32_logits)] + [
+        (f"{k}[{i}]", cache[k][i], plain[k][i], f32_cache[k][i])
+        for k in ("conv_x", "conv_BC", "ssm") for i in range(cfg.n_layers)]
+    for name, got, base, want in pairs:
+        assert got.shape == base.shape == want.shape, name
+        err, noise = _rel_norm_err(got, want), _rel_norm_err(base, want)
+        assert math.isfinite(err) and err <= PREFILL_BF16_NOISE_RATIO \
+            * noise, (name, err, noise)

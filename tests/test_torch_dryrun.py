@@ -164,6 +164,32 @@ def test_world1_trace_equals_real_cpu_step(arch, kind):
                                                                    rel=0.05)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_world1_kernel_prefill_trace_equals_real_cpu_step(arch):
+    """A prefill from the zero state with the SSD kernel on: the fake
+    trace holds ``smlt::ssd_scan`` once a Mamba2 layer at ``ssd_flops``
+    a call, and its FLOPs equal the same step's on real CPU tensors."""
+    shape = _shape("prefill", batch=2)
+    base = reduced(ARCHS[arch])
+    on = {"use_ssd_kernel": True}
+    res = D.lower_one(arch, shape, multi_pod=False, mesh_shape="1x1",
+                      device="cpu", cfg=base, overrides=on)
+    cfg = D.dryrun_config(arch, shape, cfg=base, overrides=on)
+    with process_group("cpu"):
+        mesh = make_custom_mesh("1x1", "cpu")
+        step = D.make_step(cfg, shape, mesh)
+        args = D.step_args(step, cfg, shape, device="cpu",
+                           init=lambda p: registry.init(0, cfg, "cpu"))
+        with FlopCounterMode(display=False) as flops:
+            step(*args)
+    per_call = ssd.ssd_flops(
+        (2, SEQ, cfg.ssm_nheads, cfg.ssm_headdim), None, None,
+        (2, SEQ, cfg.ssm_state), None, None, min(cfg.ssm_chunk, SEQ))
+    assert flops.get_flop_counts()["Global"][torch.ops.smlt.ssd_scan] \
+        == cfg.n_layers * per_call
+    assert res["flops"] == flops.get_total_flops() > 0
+
+
 def test_flash_custom_op_opcheck_and_flops():
     gen = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(2, 3, 256, 32, generator=gen) for _ in range(3))

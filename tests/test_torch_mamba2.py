@@ -223,6 +223,111 @@ def test_decode_after_prefill_matches_full_forward():
                                    rtol=1e-4, atol=1e-5)
 
 
+def _ssd_counts(fn):
+    """The ``ssd.*`` counter records made while ``fn()`` runs, as
+    (name, value) pairs, and its result."""
+    from repro_torch.core import spans
+    spans.clear()
+    with spans.recording():
+        out = fn()
+    got = [(c.name, c.value) for c in spans.counted()
+           if c.name.startswith("ssd.")]
+    spans.clear()
+    return got, out
+
+
+@pytest.mark.parametrize("kernel", [True, False])
+def test_zero_state_prefill_takes_the_kernel_once_a_layer(kernel,
+                                                          monkeypatch):
+    """A prefill starts from the zero state, which it states: under
+    ``use_ssd_kernel`` every block calls ``kops.ssd_scan`` once and
+    ``ssd_chunked`` never, and counts ``ssd.kernel``; without it every
+    block takes ``ssd_chunked`` and counts ``ssd.chunked``."""
+    from repro_torch.kernels import ops as kops
+    _, cfg, _, params = _models()
+    cfg = cfg.replace(use_ssd_kernel=kernel)
+    calls = []
+    for mod, name in ((kops, "ssd_scan"), (m, "ssd_chunked")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, _f=fn, **k: (
+            calls.append(_n), _f(*a, **k))[1])
+    toks = torch.from_numpy(reduced_batch(cfg, 2, 37)["tokens"])
+    got, _ = _ssd_counts(lambda: m.prefill(params, cfg, toks))
+    want = "ssd_scan" if kernel else "ssd_chunked"
+    assert calls == [want] * cfg.n_layers
+    assert got == [("ssd.kernel" if kernel else "ssd.chunked", 1)] \
+        * cfg.n_layers
+
+
+def test_continuation_and_decode_keep_their_paths():
+    """Under ``use_ssd_kernel`` a forward that carries a prefill's state
+    (not stated as zero) takes ``ssd_chunked``, and a one-token decode
+    step the recurrence, which counts nothing; with spans off nothing is
+    counted at all."""
+    from repro_torch.core import spans
+    _, cfg, _, params = _models()
+    cfg = cfg.replace(use_ssd_kernel=True)
+    toks = torch.from_numpy(reduced_batch(cfg, 2, 40)["tokens"])
+    _, cache = m.prefill(params, cfg, toks[:, :30])
+    assert spans.counted() == []
+    got, _ = _ssd_counts(lambda: m.forward(params, cfg, toks[:, 30:39],
+                                           cache=cache))
+    assert got == [("ssd.chunked", 1)] * cfg.n_layers
+    got, _ = _ssd_counts(lambda: m.decode_step(params, cfg, cache, 30,
+                                               toks[:, 30:31]))
+    assert got == []
+
+
+@pytest.mark.parametrize("s", [37, 300])
+def test_kernel_prefill_matches_reference(s):
+    """The prefill through the SSD kernel (its plain version on the CPU) at
+    prompt lengths that are not multiples of the chunk: the logits and
+    every cache leaf against the reference's prefill, which runs its
+    chunked form."""
+    jcfg, cfg, jparams, params = _models()
+    batch = reduced_batch(cfg, 2, s)
+    got, (logits, cache) = _ssd_counts(lambda: registry.prefill(
+        params, cfg.replace(use_ssd_kernel=True),
+        {"tokens": T.from_numpy(batch, "cpu")["tokens"]}))
+    assert got == [("ssd.kernel", 1)] * cfg.n_layers
+    jlogits, jcache = jreg.prefill(jparams, jcfg, batch)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               rtol=1e-4, atol=1e-5)
+    for k in ("conv_x", "conv_BC", "ssm"):
+        assert cache[k].shape == jcache[k].shape
+        np.testing.assert_allclose(cache[k].numpy(), np.asarray(jcache[k]),
+                                   rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("fault", [None, "ssd_bc_swap"])
+def test_smoke_holds_each_serving_prefill_kernel_call(fault, monkeypatch):
+    """chip_smoke.py's hold of the serving prefill (phases 9 and 13) passes
+    every SSD call of a prefill from the zero state, one a layer, and
+    fails a kernel that computes another function of its inputs."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+    from repro_torch.kernels import ops as kops
+    _, cfg, _, params = _models()
+    cfg = cfg.replace(use_ssd_kernel=True)
+    if fault:
+        scan = kops.ssd_scan
+        monkeypatch.setattr(kops, "ssd_scan", lambda x, dt, A, B, C, D, *,
+                            chunk: scan(x, dt, A, C, B, D, chunk=chunk))
+    before, held = kops.ssd_scan, []
+    if fault:
+        with pytest.raises(RuntimeError, match="inside the model"):
+            cs.run_serving(cfg, params, torch.device("cpu"), 2, 64, 3,
+                           held=held)
+    else:
+        cs.run_serving(cfg, params, torch.device("cpu"), 2, 64, 3,
+                       held=held)
+        assert held == [("ssd_scan", 0.0)] * cfg.n_layers   # plain on CPU
+    assert kops.ssd_scan is before                          # restored
+
+
 def test_init_decode_cache_matches_reference_shapes():
     for arch in (ARCH, "olmo-1b"):
         jcfg, cfg = j_reduced(J_ARCHS[arch]), reduced(ARCHS[arch])
